@@ -1,0 +1,342 @@
+"""ALIInstance: divisor precomputation, G composition, DEEP.
+
+Semantic port of src/ali/per_register/mod.rs and
+src/ali/per_register/deep.rs, as hodor_tpu/ali/instance.py arranges it:
+
+- challenge draws are hoisted out of the compute (the reference draws
+  (alpha, beta) per constraint *before* evaluating it, with no commits in
+  between - src/ali/per_register/mod.rs:425-432 - so the whole challenge
+  vector is known up front);
+- the reference's per-term memoization of repeated (mask, power) coset
+  LDEs (:379-398) is explicit: the distinct (mask, power) pairs are
+  enumerated at instance build time and evaluated as one batched
+  coset-LDE;
+- IndexMap/IndexSet insertion orders (protocol-critical for Fiat-Shamir)
+  are reproduced with Python dicts (insertion-ordered).
+
+Constraint evaluation is one loop over the constraints and their terms
+for every batch size: eager PyTorch has no traced program whose size a
+scan would have to bound, and field sums are exact, so the values equal
+both of the JAX package's forms.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import torch
+
+from ..air.constraint import Constraint, UnivariateTerm
+from ..air.density import density_divisor_spec, density_key
+from ..arp import ARPInstance
+from ..domain import Domain
+from ..errors import DivisionByZeroError
+from ..field.field import Field
+from ..field.limbs import LimbOps
+from ..ntt import distribute_powers, evaluate_at, icoset_ntt, lde
+from ..transcript import Blake2sTranscript
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskProperties:
+    """(register, mask) pair (src/ali/mod.rs:30-41)."""
+
+    register_index: int
+    mask: int  # canonical field int (omega^steps)
+
+
+def get_masks_from_constraint(masks: Dict[MaskProperties, None], c: Constraint) -> None:
+    """IndexSet-ordered mask collection (src/ali/mod.rs:58-105)."""
+    for t in c.terms:
+        unis = [t] if isinstance(t, UnivariateTerm) else t.terms
+        for u in unis:
+            assert u.steps_difference.kind == "mask"
+            masks.setdefault(MaskProperties(u.register.index, u.steps_difference.value), None)
+
+
+def get_mask_from_boundary_constraint(masks: Dict[MaskProperties, None], bc) -> None:
+    masks.setdefault(MaskProperties(bc.register.index, 1), None)
+
+
+class ALIInstance:
+    """Precomputed ALI state + the two prover stages (G, DEEP)."""
+
+    def __init__(self, arp: ARPInstance):
+        props = arp.properties
+        self.properties = props
+        self.field: Field = props.field
+        self.ops: LimbOps = arp.ops
+
+        self.max_constraint_power = max((c.degree for c in props.constraints), default=1)
+        self.column_domain = Domain.new_for_size(self.field, props.num_rows)
+        self.constraints_domain = Domain.new_for_size(
+            self.field, self.column_domain.size * self.max_constraint_power
+        )
+
+        # ordered masks (constraints first, boundary last - the
+        # reference's IndexSet fill order, src/ali/per_register/mod.rs:53-57
+        # and :196-208)
+        masks: Dict[MaskProperties, None] = {}
+        for c in props.constraints:
+            get_masks_from_constraint(masks, c)
+
+        # ordered density batches (src/ali/per_register/mod.rs:163-171)
+        self.batches: Dict[Tuple, List[Constraint]] = {}
+        for c in props.constraints:
+            self.batches.setdefault(density_key(c.density), []).append(c)
+
+        for bc in props.boundary_constraints:
+            get_mask_from_boundary_constraint(masks, bc)
+        self.all_masks: List[MaskProperties] = list(masks.keys())
+        self.mask_index = {m: i for i, m in enumerate(self.all_masks)}
+
+        # distinct (mask_idx, power) LDE requirements (the reference's
+        # WitnessEvaluationData memo key, src/ali/mod.rs:43-56)
+        self.term_ldes: Dict[Tuple[int, int], int] = {}
+        for c in props.constraints:
+            for t in c.terms:
+                unis = [t] if isinstance(t, UnivariateTerm) else t.terms
+                for u in unis:
+                    self.term_ldes.setdefault(self._term_key(u), len(self.term_ldes))
+
+        # coset values of the constraints domain (PrecomputedOmegas.coset,
+        # src/precomputations/mod.rs:48-60), inverse divisors per density
+        # batch (src/ali/per_register/mod.rs:60-192) and boundary divisors
+        # per distinct row (:210-227)
+        rows: Dict[int, None] = {}
+        for bc in props.boundary_constraints:
+            rows.setdefault(bc.at_row, None)
+        self._boundary_rows = list(rows.keys())
+        self._precompute()
+
+    def _term_key(self, u) -> Tuple[int, int]:
+        return (self.mask_index[MaskProperties(u.register.index, u.steps_difference.value)],
+                u.power)
+
+    def _precompute(self) -> None:
+        ops = self.ops
+        field = self.field
+        props = self.properties
+        d_size = self.constraints_domain.size
+        g = self.column_domain.generator
+        coset = ops.powers(
+            ops.const(self.constraints_domain.generator), d_size,
+            start=ops.const(field.generator),
+        )  # (D, L)
+
+        # vanishing-polynomial values per density batch over the coset
+        # (air/density.py divisor form), inverted in one batch inverse;
+        # subgroup-type densities (e > 0) are Z = x^e - c with the
+        # excluded roots multiplied back after the inverse, sparse ones a
+        # direct root product
+        z_parts = []
+        specs = []
+        for key in self.batches:
+            e, c_exp, excluded, included = density_divisor_spec(
+                key, self.column_domain.size, props.num_rows
+            )
+            if e:
+                roots = ops.encode([field.pow(g, r) for r in excluded]) if excluded else None
+                z = ops.sub(ops.pow_static(coset, e), ops.const(field.pow(g, c_exp)))
+            else:
+                roots = ops.encode([field.pow(g, r) for r in included])
+                z = ops.sub(coset, roots[0])
+                for i in range(1, roots.shape[0]):
+                    z = ops.mul(z, ops.sub(coset, roots[i]))
+            z_parts.append(z)
+            specs.append((key, e, roots))
+
+        self.constraint_divisors: Dict[Tuple, torch.Tensor] = {}
+        if z_parts:
+            stacked = torch.stack(z_parts)  # (nkeys, D, L)
+            inv_all = ops.batch_inverse(stacked.reshape(-1, ops.n16)).reshape(stacked.shape)
+            for idx, (key, e, roots) in enumerate(specs):
+                inv = inv_all[idx]
+                if e and roots is not None:  # excluded roots (e > 0 only)
+                    for i in range(roots.shape[0]):
+                        inv = ops.mul(inv, ops.sub(coset, roots[i]))
+                self.constraint_divisors[key] = inv
+
+        self.boundary_divisors: Dict[int, torch.Tensor] = {}
+        if self._boundary_rows:
+            # 1/(x - root) for every boundary row, one batch inverse
+            broots = ops.encode([field.pow(g, r) for r in self._boundary_rows])
+            diffs = ops.sub(coset[None, :, :], broots[:, None, :])
+            nb = diffs.shape[0]
+            binv = ops.batch_inverse(diffs.reshape(nb * d_size, -1)).reshape(nb, d_size, -1)
+            for i, row in enumerate(self._boundary_rows):
+                self.boundary_divisors[row] = binv[i]
+        self.coset_values = coset
+
+    # ------------------------------------------------------------------- G
+
+    def draw_g_challenges(self, transcript: Blake2sTranscript):
+        """Draw (alpha, beta) per constraint (in density-batch order) then
+        per boundary constraint - the exact reference order
+        (src/ali/per_register/mod.rs:425-432 and :482-487)."""
+        constraint_ch = []
+        for _key, batch in self.batches.items():
+            for _ in batch:
+                a = transcript.get_challenge()
+                b = transcript.get_challenge()
+                constraint_ch.append((a, b))
+        boundary_ch = []
+        for _ in self.properties.boundary_constraints:
+            a = transcript.get_challenge()
+            b = transcript.get_challenge()
+            boundary_ch.append((a, b))
+        return constraint_ch, boundary_ch
+
+    def calculate_g(self, transcript: Blake2sTranscript, witness_coeffs):
+        """witness_coeffs: (R, T, L). Returns G in coefficient form (D, L).
+        Draws challenges from the transcript exactly like the reference."""
+        constraint_ch, boundary_ch = self.draw_g_challenges(transcript)
+        ops = self.ops
+        field = self.field
+        d_size = self.constraints_domain.size
+        L = ops.n16
+        power_hint = self.max_constraint_power  # LDE factor for term evaluation
+
+        # 1. mask witness polys: f_m = witness[reg] with powers of mask
+        #    distributed (src/ali/per_register/mod.rs:276-290)
+        masked = []
+        for m in self.all_masks:
+            f = witness_coeffs[m.register_index]
+            masked.append(f if m.mask == 1 else distribute_powers(ops, f, ops.const(m.mask)))
+        # 2. batched coset-LDE of every distinct (mask, power) term
+        #    (the memoized evaluate_univariate_term_into_values, :356-421)
+        bases = torch.stack([masked[mi] for (mi, _pw) in self.term_ldes], dim=0)
+        base_ldes = lde(ops, bases, power_hint, coset=True)  # (K, D, L)
+        term_vals = [ops.pow_static(base_ldes[k], pw)
+                     for k, (_mi, pw) in enumerate(self.term_ldes)]
+
+        # distinct adjustment powers -> x^adj tables, computed once each
+        adj_pows = {}
+
+        def adj_table(adj):
+            if adj not in adj_pows:
+                adj_pows[adj] = ops.pow_static(self.coset_values, adj)
+            return adj_pows[adj]
+
+        g_values = ops.zero_m.expand(d_size, L)
+        ci = 0
+        for key, batch in self.batches.items():
+            batch_values = ops.zero_m.expand(d_size, L)
+            for c in batch:
+                alpha_int, beta_int = constraint_ch[ci]
+                ci += 1
+                alpha = ops.const(alpha_int)
+                cvals = ops.const(c.constant_term % field.p).expand(d_size, L)
+                for t in c.terms:
+                    unis = [t] if isinstance(t, UnivariateTerm) else t.terms
+                    prod = None
+                    for u in unis:
+                        v = term_vals[self.term_ldes[self._term_key(u)]]
+                        prod = v if prod is None else ops.mul(prod, v)
+                    if t.coeff % field.p != 1:
+                        prod = ops.mul(prod, ops.const(t.coeff % field.p))
+                    cvals = ops.add(cvals, prod)
+                adjustment = self.max_constraint_power - c.degree
+                if adjustment == 0:
+                    cvals = ops.mul(cvals, alpha)
+                else:
+                    # alpha * x^adj + beta over the coset (:292-308)
+                    factor = ops.add(ops.mul(adj_table(adjustment), alpha), ops.const(beta_int))
+                    cvals = ops.mul(cvals, factor)
+                batch_values = ops.add(batch_values, cvals)
+            batch_values = ops.mul(batch_values, self.constraint_divisors[key])
+            g_values = ops.add(g_values, batch_values)
+
+        # boundary constraints (:480-524), batched: one coset-LDE of all
+        # shifted register polys, one adjustment/divisor pass
+        bcs = self.properties.boundary_constraints
+        if bcs:
+            wstack = torch.stack([witness_coeffs[bc.register.index] for bc in bcs])
+            bvals = ops.encode([bc.value % field.p for bc in bcs])  # (B, L)
+            wstack[:, 0] = ops.sub(wstack[:, 0], bvals)
+            cvals = lde(ops, wstack, power_hint, coset=True)  # (B, D, L)
+            b_alphas = ops.encode([a for a, _ in boundary_ch])
+            b_betas = ops.encode([b for _, b in boundary_ch])
+            adjustment = self.max_constraint_power - 1
+            if adjustment == 0:
+                cvals = ops.mul(cvals, b_alphas[:, None, :])
+            else:
+                adj = ops.add(ops.mul(adj_table(adjustment)[None], b_alphas[:, None, :]),
+                              b_betas[:, None, :])
+                cvals = ops.mul(cvals, adj)
+            bdiv = torch.stack([self.boundary_divisors[bc.at_row] for bc in bcs])
+            cvals = ops.mul(cvals, bdiv)
+            g_values = ops.add(g_values, ops.sum_reduce(cvals, axis=0))
+
+        # G interpolant (:526)
+        return icoset_ntt(ops, g_values)
+
+    # ---------------------------------------------------------------- DEEP
+
+    def calculate_deep(self, witness_coeffs, f_ldes, g_poly, g_lde,
+                       transcript: Blake2sTranscript):
+        """Returns (h1_lde, h2_lde, f_at_z_m: List[int], g_at_z: int).
+        Port of calculate_deep (src/ali/per_register/deep.rs:14-148).
+
+        witness_coeffs (R, T, L), f_ldes (R, N_f, L), g_poly (D, L),
+        g_lde (N_g, L)."""
+        ops = self.ops
+        field = self.field
+        z = transcript.get_challenge()
+        # the reference draws each alpha after its mask's evaluation but
+        # with no commits in between, so all of them depend only on z
+        # (deep.rs:78)
+        alphas = [transcript.get_challenge() for _ in self.all_masks]
+        roots = [field.mul(m.mask, z) for m in self.all_masks]
+        regs = [m.register_index for m in self.all_masks]
+
+        # the reference's batch_inversion returns Err when a divisor point
+        # falls in the evaluation domain (deep.rs:57-72, :129-146); an
+        # exact host check keeps a poisoned batch inverse out of DEEP
+        n_f = f_ldes.shape[1]
+        n_g = g_lde.shape[0]
+        for root in roots:
+            if field.pow(root, n_f) == 1:
+                raise DivisionByZeroError("mask*z lies in the f-LDE domain")
+        if field.pow(z, n_g) == 1:
+            raise DivisionByZeroError("z lies in the g-LDE domain")
+
+        roots_m = ops.encode(roots)  # (M, L)
+        alphas_m = ops.encode(alphas)
+        z_m = ops.const(z)
+
+        # f(m*z) per mask: batched polynomial evaluation (deep.rs:53)
+        stacked = torch.stack([witness_coeffs[r] for r in regs], dim=0)  # (M, T, L)
+        xpow = ops.powers(roots_m, stacked.shape[1])  # (M, T, L)
+        f_at_z_m = ops.sum_reduce(ops.mul(stacked, xpow), axis=1)  # (M, L)
+
+        # h1 = sum_m alpha_m * (f_lde[reg] - f(mz)) / (x - mz) on the
+        # f-LDE domain (deep.rs:57-84); the domain points are plain
+        # Omega^i. One mask at a time, so one mask's arrays are live.
+        xs_f = self._domain_points(n_f)
+        h1_lde = None
+        for i, r in enumerate(regs):
+            inv_i = ops.batch_inverse(ops.sub(xs_f, roots_m[i]))
+            num_i = ops.sub(f_ldes[r], f_at_z_m[i])
+            term = ops.mul(ops.mul(num_i, alphas_m[i]), inv_i)
+            h1_lde = term if h1_lde is None else ops.add(h1_lde, term)
+            del inv_i, num_i, term
+
+        # h2 = (g_lde - g(z)) / (x - z) on the g-LDE domain (deep.rs:129-146)
+        g_at_z = evaluate_at(ops, g_poly, z_m)
+        den = ops.batch_inverse(ops.sub(self._domain_points(n_g), z_m))
+        h2_lde = ops.mul(ops.sub(g_lde, g_at_z), den)
+
+        f_np = f_at_z_m.cpu()
+        g_np = g_at_z.cpu()
+        f_vals = [int(v) for v in ops.decode(f_np)]
+        return h1_lde, h2_lde, f_vals, int(ops.decode(g_np))
+
+    def _domain_points(self, n: int):
+        """[1, w, w^2, ...] over the size-n domain, built once per LimbOps."""
+        key = ("domain_points", n)
+        if key not in self.ops.tables:
+            dom = Domain.new_for_size(self.field, n)
+            self.ops.tables[key] = self.ops.powers(self.ops.const(dom.generator), n)
+        return self.ops.tables[key]

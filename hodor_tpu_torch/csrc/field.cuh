@@ -1,0 +1,136 @@
+// Shared device helpers for the prime-field kernels.
+//
+// A field element crosses the kernel boundary as n16 int32 values, each
+// holding one 16-bit limb, little-endian, in Montgomery form (the port's
+// limb layout, hodor_tpu_torch/field/limbs.py). Inside a kernel it is
+// packed into NW = n16 / 2 32-bit words, so products are 32x32 -> 64-bit
+// (mad.wide.u32) instead of the TPU kernels' 16x16 -> 32-bit planes.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace hodor {
+
+constexpr int kMaxWords = 8;  // 256-bit moduli (n16 = 16)
+constexpr int kMaxChain = 8;  // conditional-subtract multiples of p
+
+struct FieldConsts {
+  uint32_t p[kMaxWords];
+  uint32_t pinv0;  // -p^-1 mod 2^32
+};
+
+// Element strides (in int32 units) of a broadcast operand over the
+// output's index space collapsed to three dims; 0 marks a broadcast dim.
+struct Strides3 {
+  long long s[3];
+};
+
+struct Dims3 {
+  long long d[3];
+};
+
+template <int NW>
+__device__ __forceinline__ void load_words(const int32_t* limbs, uint32_t (&w)[NW]) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i)
+    w[i] = (uint32_t)limbs[2 * i] | ((uint32_t)limbs[2 * i + 1] << 16);
+}
+
+template <int NW>
+__device__ __forceinline__ void store_words(int32_t* limbs, const uint32_t (&w)[NW]) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    limbs[2 * i] = (int32_t)(w[i] & 0xFFFFu);
+    limbs[2 * i + 1] = (int32_t)(w[i] >> 16);
+  }
+}
+
+// d = a - b; returns the borrow out (1 when a < b).
+template <int NW>
+__device__ __forceinline__ uint32_t sub_words(uint32_t (&d)[NW], const uint32_t (&a)[NW],
+                                              const uint32_t* b) {
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t t = (uint64_t)a[i] - b[i] - borrow;
+    d[i] = (uint32_t)t;
+    borrow = (uint32_t)(t >> 32) & 1u;
+  }
+  return borrow;
+}
+
+// s = a + b; returns the carry out.
+template <int NW>
+__device__ __forceinline__ uint32_t add_words(uint32_t (&s)[NW], const uint32_t (&a)[NW],
+                                              const uint32_t* b) {
+  uint32_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t t = (uint64_t)a[i] + b[i] + carry;
+    s[i] = (uint32_t)t;
+    carry = (uint32_t)(t >> 32);
+  }
+  return carry;
+}
+
+// u -= m when u >= m.
+template <int NW>
+__device__ __forceinline__ void cond_sub(uint32_t (&u)[NW], const uint32_t* m) {
+  uint32_t d[NW];
+  uint32_t borrow = sub_words<NW>(d, u, m);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) u[i] = borrow ? u[i] : d[i];
+}
+
+// r = a * b * 2^(-32 NW) mod p by CIOS; a, b < p, r canonical (< p).
+template <int NW>
+__device__ __forceinline__ void mont_mul_words(uint32_t (&r)[NW], const uint32_t (&a)[NW],
+                                               const uint32_t (&b)[NW], const FieldConsts& fc) {
+  uint32_t t[NW + 2];
+#pragma unroll
+  for (int i = 0; i < NW + 2; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[NW] + c;
+    t[NW] = (uint32_t)s;
+    t[NW + 1] = (uint32_t)(s >> 32);
+    uint32_t m = t[0] * fc.pinv0;
+    c = ((uint64_t)m * fc.p[0] + t[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < NW; ++j) {
+      uint64_t s2 = (uint64_t)m * fc.p[j] + t[j] + c;
+      t[j - 1] = (uint32_t)s2;
+      c = s2 >> 32;
+    }
+    s = (uint64_t)t[NW] + c;
+    t[NW - 1] = (uint32_t)s;
+    t[NW] = t[NW + 1] + (uint32_t)(s >> 32);
+  }
+  uint32_t lo[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) lo[i] = t[i];
+  uint32_t d[NW];
+  uint32_t borrow = sub_words<NW>(d, lo, fc.p);
+  bool ge = (t[NW] != 0) || (borrow == 0);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) r[i] = ge ? d[i] : lo[i];
+}
+
+__device__ __forceinline__ const int32_t* element_at(const int32_t* base, const Strides3& st,
+                                                     const Dims3& dims, long long i) {
+  long long i2 = i % dims.d[2];
+  long long rest = i / dims.d[2];
+  long long i1 = rest % dims.d[1];
+  long long i0 = rest / dims.d[1];
+  return base + i0 * st.s[0] + i1 * st.s[1] + i2 * st.s[2];
+}
+
+}  // namespace hodor

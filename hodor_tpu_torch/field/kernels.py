@@ -1,0 +1,540 @@
+"""The hand-written CUDA kernels of the port, their wrappers and their
+plain PyTorch versions.
+
+Four kernels, one per TPU kernel on the prove path
+(hodor_tpu/field/pallas_kernels.py):
+
+  mont_mul   <- pallas_mont_mul_v2 (and pallas_mont_mul)   csrc/mont_mul.cu
+  addsub     <- pallas_addsub                               csrc/addsub.cu
+  blake2s    <- pallas_blake2s                              csrc/blake2s.cu
+  ntt_level  <- pallas_ntt_level                            csrc/ntt_level.cu
+
+Every wrapper dispatches on the device of its tensors and nothing else:
+a CPU tensor takes the plain version beside it (int64 torch ops, the
+same function), a CUDA tensor launches the kernel or raises. The
+kernels are compiled by nvcc from `csrc/` into one shared library under
+`build/` at the repo root on first use, keyed by a hash of the sources,
+and bound with ctypes. `launch_counts` counts each wrapper's launches.
+
+Field arrays are (..., n16) int32 holding 16-bit Montgomery limbs;
+Blake2s words are int32 holding u32 bit patterns.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from functools import lru_cache
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .field import Field
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level")
+launch_counts = {name: 0 for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        launch_counts[name] = 0
+
+
+# ------------------------------------------------------------------ build
+
+_lib = None
+
+
+def _sources():
+    return sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def build_kernels(verbose: bool = False) -> str:
+    """Compile csrc/*.cu into build/libhodor_kernels_<hash>.so unless that
+    file exists, and load it. Returns the library path. With verbose, the
+    compiler's resource report (-Xptxas -v) is printed."""
+    global _lib
+    srcs = _sources()
+    h = hashlib.sha256()
+    for path in srcs:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    lib_path = os.path.join(BUILD_DIR, f"libhodor_kernels_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        cmd += [p for p in srcs if p.endswith(".cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        if verbose:
+            print(res.stdout + res.stderr)
+        os.replace(tmp, lib_path)
+    if _lib is None or _lib._name != lib_path:
+        _lib = _bind(ctypes.CDLL(lib_path))
+    return lib_path
+
+
+def _bind(lib):
+    vp, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
+    lib.hodor_mont_mul.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, u32, vp]
+    lib.hodor_addsub.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.hodor_blake2s.argtypes = [vp, vp, i64, i32, vp, u32, vp]
+    lib.hodor_ntt_level.argtypes = [i32, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
+    for fn in (lib.hodor_mont_mul, lib.hodor_addsub, lib.hodor_blake2s, lib.hodor_ntt_level):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _kernels():
+    if _lib is None:
+        build_kernels()
+    return _lib
+
+
+def _check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {code}")
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _i64_array(values):
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def _u32_array(values):
+    return (ctypes.c_uint32 * len(values))(*values)
+
+
+# ------------------------------------------------------------- constants
+
+def _int_limbs(value: int, n16: int) -> np.ndarray:
+    """int64 limbs of a Python int (the plain versions' constants)."""
+    return np.array([(value >> (16 * i)) & 0xFFFF for i in range(n16)], dtype=np.int64)
+
+
+def _words(value: int, nw: int):
+    return [(value >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
+
+
+@lru_cache(maxsize=None)
+def _field_limbs(field: Field, device: torch.device):
+    """(p, -p^-1 mod R) as int64 limb tensors, for the plain versions."""
+    n16 = field.n16
+    return (torch.as_tensor(_int_limbs(field.p, n16), device=device),
+            torch.as_tensor(_int_limbs(field.p_inv_neg, n16), device=device))
+
+
+@lru_cache(maxsize=None)
+def reduction_chain(field: Field, radix: int) -> Tuple[int, ...]:
+    """Multiples m*p to subtract conditionally, in order, bringing the
+    Montgomery reduction u < radix*p^2/R + p of a radix-term sum below p
+    (derived from exact integer bounds, as ntt/matmul.py _reduction_chain
+    in the JAX package)."""
+    p = field.p
+    bound = radix * p * p // field.R + p + 1
+    mults = []
+    while bound > p:
+        m = 1
+        while 2 * m * p < bound:
+            m *= 2
+        mults.append(m * p)
+        bound = max(bound - m * p, m * p)
+    return tuple(mults)
+
+
+# ------------------------------------------------- plain limb arithmetic
+
+def _mul_cols(a, b):
+    """Schoolbook column sums of (..., n) int64 limbs -> (..., 2n)."""
+    n = a.shape[-1]
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    cols = torch.zeros(shape[:-1] + (2 * n,), dtype=torch.int64, device=a.device)
+    for i in range(n):
+        cols[..., i:i + n] += a[..., i:i + 1] * b
+    return cols
+
+
+def _carry(cols, n_out: int):
+    """Non-negative int64 columns -> n_out carried 16-bit limbs (the carry
+    out of the top limb is dropped)."""
+    outs = []
+    carry = torch.zeros(cols.shape[:-1], dtype=torch.int64, device=cols.device)
+    for k in range(n_out):
+        t = cols[..., k] + carry if k < cols.shape[-1] else carry
+        outs.append(t & 0xFFFF)
+        carry = t >> 16
+    return torch.stack(outs, dim=-1)
+
+
+def _sub_with_borrow(a, b):
+    """Limbwise a - b -> (difference limbs, borrow out 0/1)."""
+    n = a.shape[-1]
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    outs = []
+    borrow = torch.zeros(shape[:-1], dtype=torch.int64, device=a.device)
+    for k in range(n):
+        t = a[..., k] + 0x10000 - b[..., k] - borrow
+        outs.append(t & 0xFFFF)
+        borrow = 1 - (t >> 16)
+    return torch.stack(outs, dim=-1), borrow
+
+
+def _cond_sub(u, m_limbs):
+    diff, borrow = _sub_with_borrow(u, m_limbs)
+    return torch.where((borrow == 0)[..., None], diff, u)
+
+
+def _mont_reduce_plain(field: Field, t):
+    """t: (..., >= 2n) carried limbs of t < p*R*2^k -> (t + m p)/R limbs
+    (n + 1 of them, not yet reduced below p)."""
+    n = field.n16
+    p_l, pinv_l = _field_limbs(field, t.device)
+    m = _carry(_mul_cols(t[..., :n], pinv_l), n)
+    width = t.shape[-1]
+    mp = _mul_cols(m, p_l)
+    if width > 2 * n:
+        mp = torch.cat([mp, torch.zeros(mp.shape[:-1] + (width - 2 * n,),
+                                        dtype=torch.int64, device=t.device)], dim=-1)
+    return _carry(t + mp, width + 1)[..., n:]
+
+
+def mont_mul_plain(field: Field, a, b):
+    n = field.n16
+    p_l, _ = _field_limbs(field, a.device)
+    t = _carry(_mul_cols(a.to(torch.int64), b.to(torch.int64)), 2 * n)
+    u = _mont_reduce_plain(field, t)[..., :n]  # u < 2p fits n limbs
+    return _cond_sub(u, p_l).to(torch.int32)
+
+
+def addsub_plain(field: Field, a, b, mode: str):
+    n = field.n16
+    p_l, _ = _field_limbs(field, a.device)
+    a = a.to(torch.int64)
+    b = b.to(torch.int64)
+    if mode == "add":
+        s = _carry(a + b, n + 1)
+        carry_out = s[..., n]
+        s = s[..., :n]
+        diff, borrow = _sub_with_borrow(s, p_l)
+        ge = (borrow == 0) | (carry_out > 0)
+        return torch.where(ge[..., None], diff, s).to(torch.int32)
+    if mode == "sub":
+        d, borrow = _sub_with_borrow(a, b)
+        fixed = _carry(d + p_l, n)
+        return torch.where((borrow == 1)[..., None], fixed, d).to(torch.int32)
+    raise ValueError(f"mode must be 'add' or 'sub', not {mode!r}")
+
+
+# ------------------------------------------------ elementwise dispatch
+
+def _check_limbs(field: Field, *tensors) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise TypeError(f"limb tensors must be int32, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"operands on different devices: {t.device} vs {dev}")
+        if t.dim() < 1 or t.shape[-1] != field.n16:
+            raise ValueError(f"last dim must be n16={field.n16}, got shape {tuple(t.shape)}")
+
+
+def _collapse(shape, strides_per_operand):
+    """Collapse the element dims of a broadcast into as few dims as the
+    operands' strides allow. Returns [(size, [stride per operand])]."""
+    merged = []
+    for i, size in enumerate(shape):
+        if size == 1:
+            continue
+        strides = [st[i] for st in strides_per_operand]
+        if merged:
+            psize, pstrides = merged[-1]
+            if all(ps == s * size for ps, s in zip(pstrides, strides)):
+                merged[-1] = (psize * size, strides)
+                continue
+        merged.append((size, strides))
+    return merged
+
+
+def _launch_geometry(a, b, out_shape):
+    """(a, b, dims[3], a_strides[3], b_strides[3]) in int32 units for an
+    elementwise kernel over the element dims of out_shape; broadcast dims
+    get stride 0. An operand layout that does not collapse to three dims
+    is copied to a contiguous broadcast first."""
+    elem_shape = tuple(out_shape[:-1])
+    for _ in range(2):
+        ops_ = [t.expand(out_shape) for t in (a, b)]
+        if any(t.stride(-1) != 1 for t in ops_):
+            raise ValueError("limb dim must have stride 1")
+        merged = _collapse(elem_shape, [t.stride()[:-1] for t in ops_])
+        if len(merged) <= 3:
+            merged = [(1, [0, 0])] * (3 - len(merged)) + merged
+            dims = [m[0] for m in merged]
+            return (a, b, dims, [m[1][0] for m in merged], [m[1][1] for m in merged])
+        a, b = (t.expand(out_shape).contiguous() for t in (a, b))
+    raise AssertionError("unreachable")
+
+
+def _out_tensor(out, shape, like):
+    if out is None:
+        return torch.empty(shape, dtype=torch.int32, device=like.device)
+    if tuple(out.shape) != tuple(shape) or not out.is_contiguous() or out.dtype != torch.int32:
+        raise ValueError("out must be a contiguous int32 tensor of the broadcast shape")
+    return out
+
+
+def mont_mul(field: Field, a, b, out=None):
+    """Elementwise Montgomery product a*b*R^-1 mod p of (..., n16) limbs
+    (broadcasting). CPU: plain version. CUDA: the mont_mul kernel."""
+    _check_limbs(field, a, b)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if a.device.type == "cpu":
+        res = mont_mul_plain(field, a, b)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    out = _out_tensor(out, shape, a)
+    if out.numel() == 0:
+        return out
+    a, b, dims, a_st, b_st = _launch_geometry(a, b, shape)
+    lib = _kernels()
+    n = field.n16
+    code = lib.hodor_mont_mul(
+        n, out.data_ptr(), a.data_ptr(), _i64_array(a_st), b.data_ptr(), _i64_array(b_st),
+        _i64_array(dims), _u32_array(_words(field.p, n // 2)),
+        (-pow(field.p, -1, 1 << 32)) % (1 << 32), _stream(),
+    )
+    _check(code, "mont_mul")
+    launch_counts["mont_mul"] += 1
+    return out
+
+
+def addsub(field: Field, a, b, mode: str, out=None):
+    """Elementwise modular a+b ('add') or a-b ('sub') of (..., n16) limbs
+    (broadcasting). CPU: plain version. CUDA: the addsub kernel."""
+    if mode not in ("add", "sub"):
+        raise ValueError(f"mode must be 'add' or 'sub', not {mode!r}")
+    _check_limbs(field, a, b)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if a.device.type == "cpu":
+        res = addsub_plain(field, a, b, mode)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    out = _out_tensor(out, shape, a)
+    if out.numel() == 0:
+        return out
+    a, b, dims, a_st, b_st = _launch_geometry(a, b, shape)
+    lib = _kernels()
+    n = field.n16
+    code = lib.hodor_addsub(
+        n, 0 if mode == "add" else 1, out.data_ptr(), a.data_ptr(), _i64_array(a_st),
+        b.data_ptr(), _i64_array(b_st), _i64_array(dims),
+        _u32_array(_words(field.p, n // 2)), _stream(),
+    )
+    _check(code, "addsub")
+    launch_counts["addsub"] += 1
+    return out
+
+
+# ----------------------------------------------------------------- blake2s
+
+IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+       0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
+
+SIGMA = (
+    (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15),
+    (14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3),
+    (11, 8, 12, 0, 5, 2, 15, 13, 10, 14, 3, 6, 7, 1, 9, 4),
+    (7, 9, 3, 1, 13, 12, 11, 14, 2, 6, 5, 10, 4, 0, 15, 8),
+    (9, 0, 5, 7, 2, 4, 10, 15, 14, 1, 11, 12, 6, 8, 3, 13),
+    (2, 12, 6, 10, 0, 11, 8, 3, 4, 13, 7, 5, 15, 14, 1, 9),
+    (12, 5, 1, 15, 14, 13, 4, 10, 0, 7, 6, 3, 9, 2, 8, 11),
+    (13, 11, 7, 14, 12, 1, 3, 9, 5, 0, 15, 4, 8, 6, 2, 10),
+    (6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5),
+    (10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0),
+)
+
+_M32 = 0xFFFFFFFF
+
+
+def u32_to_i32(t64):
+    """int64 tensor of values in [0, 2^32) -> int32 with the same bits."""
+    return torch.where(t64 >= (1 << 31), t64 - (1 << 32), t64).to(torch.int32)
+
+
+def blake2s_plain(m_words, message_bytes: int, midstate: Sequence[int]):
+    """Keyed Blake2s of one final block per message, from the post-key
+    midstate; m_words (..., message_bytes // 4) int32 -> (..., 8) int32."""
+    lead = m_words.shape[:-1]
+    dev = m_words.device
+    w = m_words.to(torch.int64) & _M32
+    msg = [w[..., k] if k < w.shape[-1] else torch.zeros(lead, dtype=torch.int64, device=dev)
+           for k in range(16)]
+
+    def full(c):
+        return torch.full(lead, c, dtype=torch.int64, device=dev)
+
+    def rotr(x, r):
+        return ((x >> r) | (x << (32 - r))) & _M32
+
+    v = [full(int(midstate[i])) for i in range(8)] + [full(c) for c in IV]
+    v[12] = v[12] ^ ((64 + message_bytes) & _M32)
+    v[14] = v[14] ^ _M32
+
+    def g(a, b, c, d, x, y):
+        v[a] = (v[a] + v[b] + x) & _M32
+        v[d] = rotr(v[d] ^ v[a], 16)
+        v[c] = (v[c] + v[d]) & _M32
+        v[b] = rotr(v[b] ^ v[c], 12)
+        v[a] = (v[a] + v[b] + y) & _M32
+        v[d] = rotr(v[d] ^ v[a], 8)
+        v[c] = (v[c] + v[d]) & _M32
+        v[b] = rotr(v[b] ^ v[c], 7)
+
+    for r in range(10):
+        s = SIGMA[r]
+        g(0, 4, 8, 12, msg[s[0]], msg[s[1]])
+        g(1, 5, 9, 13, msg[s[2]], msg[s[3]])
+        g(2, 6, 10, 14, msg[s[4]], msg[s[5]])
+        g(3, 7, 11, 15, msg[s[6]], msg[s[7]])
+        g(0, 5, 10, 15, msg[s[8]], msg[s[9]])
+        g(1, 6, 11, 12, msg[s[10]], msg[s[11]])
+        g(2, 7, 8, 13, msg[s[12]], msg[s[13]])
+        g(3, 4, 9, 14, msg[s[14]], msg[s[15]])
+    out = torch.stack([int(midstate[i]) ^ v[i] ^ v[i + 8] for i in range(8)], dim=-1)
+    return u32_to_i32(out)
+
+
+def blake2s(m_words, message_bytes: int, midstate: Sequence[int]):
+    """Keyed Blake2s of (..., message_bytes // 4) int32 words, one final
+    block per message (message_bytes 32 for a leaf, 64 for a node).
+    CPU: plain version. CUDA: the blake2s kernel."""
+    if message_bytes not in (32, 64):
+        raise ValueError("message_bytes must be 32 or 64")
+    if m_words.dtype != torch.int32 or m_words.shape[-1] != message_bytes // 4:
+        raise ValueError(
+            f"expected (..., {message_bytes // 4}) int32 words, got "
+            f"{tuple(m_words.shape)} {m_words.dtype}")
+    if m_words.device.type == "cpu":
+        return blake2s_plain(m_words, message_bytes, midstate)
+    if m_words.device.type != "cuda":
+        raise ValueError(f"unsupported device {m_words.device}")
+    if not m_words.is_contiguous():
+        raise ValueError("message words must be contiguous")
+    lead = m_words.shape[:-1]
+    n = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    out = torch.empty(lead + (8,), dtype=torch.int32, device=m_words.device)
+    if n == 0:
+        return out
+    code = _kernels().hodor_blake2s(
+        out.data_ptr(), m_words.data_ptr(), n, message_bytes // 4,
+        _u32_array([int(x) & _M32 for x in midstate]), (64 + message_bytes) & _M32, _stream(),
+    )
+    _check(code, "blake2s")
+    launch_counts["blake2s"] += 1
+    return out
+
+
+# --------------------------------------------------------------- NTT level
+
+def ntt_level_plain(field: Field, x, w, tw=None):
+    """x (B, S, C, n16), w (S, S, n16) Montgomery DFT matrix, tw None |
+    (n16,) | (S, C, n16) -> (B, S, C, n16): the schoolbook wide sums
+    t = sum_j w[k, j] x[b, j, c], Montgomery-reduced, brought below p by
+    the reduction chain, times tw."""
+    n = field.n16
+    bsz, size, cols, _ = x.shape
+    dev = x.device
+    x64 = x.to(torch.int64)
+    w64 = w.to(torch.int64)
+    diag = (torch.arange(n, device=dev)[:, None] + torch.arange(n, device=dev)[None, :]).reshape(-1)
+    acc = torch.zeros((bsz, size, cols, 2 * n), dtype=torch.int64, device=dev)
+    for j in range(size):
+        prod = w64[None, :, j, None, :, None] * x64[:, None, j, :, None, :]  # (B,S,C,n,n)
+        acc.index_add_(3, diag, prod.reshape(bsz, size, cols, n * n))
+    t = _carry(acc, 2 * n + 1)
+    u = _mont_reduce_plain(field, t)  # n + 2 limbs
+    for mult in reduction_chain(field, size):
+        u = _cond_sub(u, torch.as_tensor(_int_limbs(mult, n + 2), device=dev))
+    u = u[..., :n].to(torch.int32)
+    if tw is not None:
+        u = mont_mul_plain(field, u, tw)
+    return u
+
+
+def ntt_level(field: Field, x, w, tw=None):
+    """One radix-S DFT level over axis 1 of x (B, S, C, n16) with the
+    (S, S, n16) Montgomery DFT matrix w, then an optional Montgomery
+    twiddle: a scalar (n16,) or an (S, C, n16) table wrapping over B.
+    CPU: plain version. CUDA: the ntt_level kernel."""
+    _check_limbs(field, x, w)
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, S, C, n16), got {tuple(x.shape)}")
+    bsz, size, cols, _ = x.shape
+    if tuple(w.shape) != (size, size, field.n16):
+        raise ValueError(f"w must be ({size}, {size}, {field.n16}), got {tuple(w.shape)}")
+    if tw is not None:
+        _check_limbs(field, x, tw)
+        if tuple(tw.shape) not in ((field.n16,), (size, cols, field.n16)):
+            raise ValueError(f"tw must be (n16,) or ({size}, {cols}, n16), got {tuple(tw.shape)}")
+    if x.device.type == "cpu":
+        return ntt_level_plain(field, x, w, tw)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if not (x.is_contiguous() and w.is_contiguous() and (tw is None or tw.is_contiguous())):
+        raise ValueError("ntt_level operands must be contiguous")
+    if size > 128:
+        raise ValueError("ntt_level takes S <= 128")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    n = field.n16
+    chain = reduction_chain(field, size)
+    chain_words = [wd for m in chain for wd in _words(m, n // 2)]
+    tw_mode = 0 if tw is None else (1 if tw.dim() == 1 else 2)
+    code = _kernels().hodor_ntt_level(
+        n, out.data_ptr(), x.data_ptr(), w.data_ptr(), bsz, size, cols, tw_mode,
+        tw.data_ptr() if tw is not None else None, _u32_array(_words(field.p, n // 2)),
+        (-pow(field.p, -1, 1 << 32)) % (1 << 32),
+        _u32_array(chain_words) if chain_words else None, len(chain), _stream(),
+    )
+    _check(code, "ntt_level")
+    launch_counts["ntt_level"] += 1
+    return out

@@ -1,0 +1,261 @@
+"""Prime-field arithmetic on torch tensors of 16-bit Montgomery limbs.
+
+A field array is (..., n16) torch.int32 holding 16-bit limbs,
+little-endian, in Montgomery form (x * R mod p, R = 2^(16 n16)), with
+values below p: the JAX package's (..., n16) uint32 layout with the same
+bytes per element. int32 because CPU torch has no add, shift or compare
+for uint32; the plain code widens to int64 for products and carries.
+
+`LimbOps` carries its device. `mul`, `add` and `sub` go to the kernel
+wrappers of field/kernels.py (CUDA kernel on a CUDA tensor, plain
+version on a CPU tensor); every other operation is composed from them
+and plain tensor ops.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import kernels
+from .field import Field
+
+
+# ---------------------------------------------------------------- packing
+
+def int_to_limbs(value: int, n16: int) -> np.ndarray:
+    return np.array([(value >> (16 * i)) & 0xFFFF for i in range(n16)], dtype=np.uint32)
+
+
+def limbs_to_int(limbs) -> int:
+    limbs = np.asarray(limbs, dtype=np.uint64)
+    return sum(int(l) << (16 * i) for i, l in enumerate(limbs))
+
+
+def pack_ints(values, n16: int) -> np.ndarray:
+    """Python ints (nested lists / 1-D / 2-D) -> (..., n16) uint32 limbs."""
+    arr = np.asarray(values, dtype=object)
+    flat = arr.reshape(-1)
+    buf = b"".join(int(v).to_bytes(2 * n16, "little") for v in flat)
+    return np.frombuffer(buf, dtype="<u2").astype(np.uint32).reshape(arr.shape + (n16,))
+
+
+def unpack_ints(limbs) -> np.ndarray:
+    """(..., n16) limbs -> object array of Python ints (a Python int for
+    a single element)."""
+    limbs = np.asarray(limbs).astype(np.uint64)
+    shape = limbs.shape[:-1]
+    flat = limbs.reshape(-1, limbs.shape[-1])
+    out = np.empty(flat.shape[0], dtype=object)
+    for i in range(flat.shape[0]):
+        out[i] = limbs_to_int(flat[i])
+    return out.reshape(shape) if shape else out[0]
+
+
+def from_numpy_limbs(arr, device) -> torch.Tensor:
+    """A JAX-layout (..., n16) uint32 limb array -> the port's int32
+    tensor on `device` (limbs are < 2^16, so the values carry over)."""
+    arr = np.asarray(arr)
+    if arr.size and int(arr.max()) > 0xFFFF:
+        raise ValueError("limb values must be below 2^16")
+    return torch.from_numpy(np.ascontiguousarray(arr.astype(np.int32))).to(device)
+
+
+def to_numpy_limbs(t: torch.Tensor) -> np.ndarray:
+    """The port's int32 limb tensor -> a JAX-layout uint32 numpy array."""
+    return t.detach().cpu().numpy().astype(np.uint32)
+
+
+# --------------------------------------------------------------- LimbOps
+
+class LimbOps:
+    """Montgomery field ops over (..., n16) int32 limb tensors on one
+    device. Constant tables built from the field (DFT matrices,
+    twiddles, domain points) are cached in `tables`."""
+
+    def __init__(self, field: Field, device):
+        self.field = field
+        self.device = torch.device(device)
+        n16 = field.n16
+        self.n16 = n16
+        # the Montgomery reduce needs u = (t + m p)/R < 2p to fit n16
+        # limbs, so p needs a spare top bit
+        if field.num_bits > 16 * n16 - 1:
+            raise ValueError(
+                f"{field}: num_bits={field.num_bits} needs headroom; the u16-limb "
+                f"Montgomery arithmetic requires num_bits <= {16 * n16 - 1}"
+            )
+        self.p_limbs = self._limbs(field.p)
+        self.zero_m = self._limbs(0)
+        self.one_m = self._limbs(field.R_mod_p)
+        self.r2 = self._limbs(field.R2_mod_p)
+        self.one_canonical = self._limbs(1)
+        self.two_inv_m = self._limbs(field.to_mont(field.inv(2)))
+        self.tables: dict = {}
+
+    def _limbs(self, value: int) -> torch.Tensor:
+        return torch.as_tensor(int_to_limbs(value, self.n16).astype(np.int32), device=self.device)
+
+    # -- encode / decode (host) --
+
+    def encode(self, values) -> torch.Tensor:
+        """Python ints (canonical) -> Montgomery limb tensor on the device;
+        the Montgomery conversion (a mul by R^2) runs on the device."""
+        packed = pack_ints(values, self.n16)
+        t = torch.from_numpy(packed.astype(np.int32)).to(self.device)
+        if t.numel() == 0:
+            return t
+        return self.to_mont_arr(t)
+
+    def decode(self, limbs):
+        """Montgomery limbs -> object ndarray of canonical ints (an int for
+        a single element)."""
+        f = self.field
+        if isinstance(limbs, torch.Tensor):
+            limbs = limbs.detach().cpu().numpy()
+        raw = unpack_ints(np.asarray(limbs))
+        rinv = pow(f.R, -1, f.p)
+        if isinstance(raw, np.ndarray):
+            return np.vectorize(lambda v: (int(v) * rinv) % f.p, otypes=[object])(raw)
+        return (int(raw) * rinv) % f.p
+
+    def const(self, value: int) -> torch.Tensor:
+        """Single canonical int -> (n16,) Montgomery limbs."""
+        return self._limbs(self.field.to_mont(value % self.field.p))
+
+    # -- core arithmetic --
+
+    def add(self, a, b, out=None):
+        return kernels.addsub(self.field, a, b, "add", out=out)
+
+    def sub(self, a, b, out=None):
+        return kernels.addsub(self.field, a, b, "sub", out=out)
+
+    def neg(self, a):
+        return self.sub(self.zero_m, a)
+
+    def mul(self, a, b, out=None):
+        return kernels.mont_mul(self.field, a, b, out=out)
+
+    def square(self, a):
+        return self.mul(a, a)
+
+    def pow_static(self, a, e: int):
+        """a^e for a Python-int exponent (square-and-multiply)."""
+        if e == 0:
+            return self.one_m.expand(a.shape).clone()
+        result = None
+        base = a
+        while e:
+            if e & 1:
+                result = base if result is None else self.mul(result, base)
+            e >>= 1
+            if e:
+                base = self.square(base)
+        return result
+
+    def to_mont_arr(self, canonical_limbs):
+        """Canonical-form limbs -> Montgomery form (mul by R^2)."""
+        return self.mul(canonical_limbs, self.r2)
+
+    def from_mont_arr(self, mont_limbs):
+        """Montgomery form -> canonical-form limbs (mul by canonical 1)."""
+        return self.mul(mont_limbs, self.one_canonical)
+
+    def is_zero(self, a):
+        """Boolean mask (...,) - works for Montgomery or canonical form."""
+        return (a == 0).all(dim=-1)
+
+    def select(self, mask, a, b):
+        """mask (...,) bool -> where(mask, a, b) elementwise over limbs."""
+        return torch.where(mask[..., None], a, b)
+
+    # -- derived bulk ops --
+
+    def powers(self, x, n: int, start=None):
+        """[s, s*x, ..., s*x^(n-1)] along a new axis -2, for x of shape
+        (..., n16) (a scalar or a batch of bases); `start` defaults to 1.
+        Log-doubling: log2(n) muls over the growing table."""
+        s = self.one_m if start is None else start
+        lead = torch.broadcast_shapes(x.shape[:-1], s.shape[:-1])
+        out = torch.empty(lead + (n, self.n16), dtype=torch.int32, device=self.device)
+        if n == 0:
+            return out
+        out[..., 0, :] = s
+        step = x
+        total = 1
+        while total < n:
+            take = min(total, n - total)
+            dst = out[..., total:total + take, :]
+            prod = self.mul(out[..., :take, :], step[..., None, :],
+                            out=dst if dst.is_contiguous() else None)
+            if prod.data_ptr() != dst.data_ptr():
+                dst.copy_(prod)
+            if total * 2 < n:
+                step = self.square(step)
+            total *= 2
+        return out
+
+    def sum_reduce(self, arr, axis=0):
+        """Field sum along an axis via a binary tree of modular adds."""
+        arr = torch.movedim(arr, axis, 0)
+        n = arr.shape[0]
+        while n > 1:
+            half = n // 2
+            paired = self.add(arr[:half], arr[half:2 * half])
+            if n % 2:
+                paired = torch.cat([paired, arr[2 * half:n]], dim=0)
+            arr = paired
+            n = arr.shape[0]
+        return arr[0]
+
+    def prod_scan(self, arr, reverse: bool = False):
+        """Inclusive prefix products along axis 0 (Hillis-Steele)."""
+        n = arr.shape[0]
+        ones = self.one_m.expand(arr.shape)
+        shift = 1
+        while shift < n:
+            if reverse:
+                shifted = torch.cat([arr[shift:], ones[:shift]], dim=0)
+            else:
+                shifted = torch.cat([ones[:shift], arr[:-shift]], dim=0)
+            arr = self.mul(arr, shifted)
+            shift *= 2
+        return arr
+
+    def inv_fermat(self, x):
+        """x^(p-2), MSB-first square-and-multiply over the exponent bits
+        (about 1.5 * log2(p) elementwise muls). For single elements or
+        small batches; large arrays go through `batch_inverse`."""
+        e = self.field.p - 2
+        acc = self.one_m.expand(x.shape).clone()
+        for i in reversed(range(e.bit_length())):
+            acc = self.square(acc)
+            if (e >> i) & 1:
+                acc = self.mul(acc, x)
+        return acc
+
+    def batch_inverse(self, arr):
+        """Elementwise inverse of (N, n16) via a product tree: pairwise
+        products up (i with i + m/2), one Fermat inverse of the root, and
+        the inverses distributed back down. A zero element yields garbage:
+        callers keep zeros out (DEEP checks its divisor points on the host)."""
+        n = arr.shape[0]
+        if n == 1:
+            return self.inv_fermat(arr[0])[None, :]
+        n_pad = 1 if n <= 1 else 1 << (n - 1).bit_length()
+        work = arr
+        if n_pad != n:
+            work = torch.cat([arr, self.one_m.expand(n_pad - n, self.n16)], dim=0)
+        levels = [work]
+        cur = work
+        while cur.shape[0] > 1:
+            half = cur.shape[0] // 2
+            cur = self.mul(cur[:half], cur[half:])
+            levels.append(cur)
+        inv = self.inv_fermat(cur[0])[None, :]
+        for lvl in reversed(levels[:-1]):
+            half = lvl.shape[0] // 2
+            a, b = lvl[:half], lvl[half:]
+            inv = torch.cat([self.mul(inv, b), self.mul(inv, a)], dim=0)
+        return inv[:n]

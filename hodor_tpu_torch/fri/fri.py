@@ -1,0 +1,409 @@
+"""FRI prover (by values), query producer, verifier.
+
+The fold recurrence per round i over values v of length K
+(src/fri/fri_on_values.rs:61-119):
+
+    next[j] = (v[j] + v[j+K/2] + c * w^{-j*2^i} * (v[j] - v[j+K/2])) / 2
+
+with w the FULL lde-domain generator; each round Merkle-commits `next`
+and derives the next challenge from the root. The fold is the JAX
+package's elementwise form (its fused fold kernel is not ported yet), so
+every round runs on the mont_mul and addsub kernels; the challenge comes
+from each root on the device (digest_to_challenge_mont), since FRI fold
+challenges never touch the transcript.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import torch
+
+from ..domain import (
+    Domain,
+    coset_for_natural_index_and_size,
+    index_and_size_for_next_domain,
+    log2_floor,
+)
+from ..errors import InvalidValueError
+from ..field.field import Field
+from ..field.limbs import LimbOps
+from ..merkle.blake2s import digest_to_challenge_mont
+from ..merkle.tree import IopQuery, MerkleTree, digest_to_bytes, fetch_roots, verify_path
+from ..ntt import intt, lde
+
+
+@dataclasses.dataclass
+class FRIProofPrototype:
+    """All intermediate commitments/values (reference FRIProofPrototype,
+    src/fri/mod.rs:106-125). Values stay on the device in Montgomery form."""
+
+    l0_commitment: MerkleTree
+    intermediate_commitments: List[MerkleTree]
+    intermediate_values: list  # each (K, L) Montgomery tensor
+    challenges: List[int]
+    final_root: bytes
+    final_coefficients: List[int]
+    initial_degree_plus_one: int
+    output_coeffs_at_degree_plus_one: int
+    lde_factor: int
+
+    def get_roots(self) -> List[bytes]:
+        return [self.l0_commitment.get_root()] + [
+            c.get_root() for c in self.intermediate_commitments
+        ]
+
+    def get_final_root(self) -> bytes:
+        return self.final_root
+
+    def get_final_coefficients(self) -> List[int]:
+        return list(self.final_coefficients)
+
+
+@dataclasses.dataclass
+class FRIProof:
+    """Queries + roots + final coefficients (reference FRIProof,
+    src/fri/mod.rs:139-153)."""
+
+    queries: List[IopQuery]
+    roots: List[bytes]
+    final_coefficients: List[int]
+    initial_degree_plus_one: int
+    output_coeffs_at_degree_plus_one: int
+    lde_factor: int
+
+
+def fold_round(ops: LimbOps, values, challenge_limbs, stride: int, log_domain: int):
+    """One FRI fold (src/fri/fri_on_values.rs:70-105). values: (K, L);
+    challenge_limbs: (L,) Montgomery; the round's twiddles
+    w_j = W^(-j*stride), W the generator of the 2^log_domain l0 domain."""
+    half = values.shape[0] // 2
+    lo, hi = values[:half], values[half:]
+    dom = Domain.new_for_size(ops.field, 1 << log_domain)
+    w = ops.powers(ops.const(pow(dom.generator_inv, stride, ops.field.p)), half)
+    v_even = ops.add(lo, hi)
+    v_odd = ops.mul(ops.sub(lo, hi), w)
+    return ops.mul(ops.add(v_even, ops.mul(v_odd, challenge_limbs)), ops.two_inv_m)
+
+
+def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int):
+    """The FRI prover ladder: commit l0, then per round fold -> tree ->
+    root -> next challenge, the root -> challenge step on the device.
+
+    Returns (trees, intermediate values, final coefficients (K, L))."""
+    trees = [MerkleTree.create(lde_values, ops.field)]
+    challenge = digest_to_challenge_mont(ops, trees[0].root_digest())
+    values = lde_values
+    intermediate = []
+    for i in range(num_steps):
+        values = fold_round(ops, values, challenge, 1 << i, log_domain)
+        tree = MerkleTree.create(values, ops.field)
+        trees.append(tree)
+        challenge = digest_to_challenge_mont(ops, tree.root_digest())
+        intermediate.append(values)
+    return trees, intermediate, intt(ops, values)
+
+
+def gather_chain_queries(chain_data, idx_arrays):
+    """Every round's query values and full Merkle paths. chain_data: list
+    of (tree, committed values); idx_arrays: list of (Q,) int64 index
+    tensors. Returns per round (values (Q, L), siblings (depth, Q, 8)),
+    on the host."""
+    out = []
+    for (tree, vals), idx in zip(chain_data, idx_arrays):
+        out.append((vals[idx], tree.path_digests(idx)))
+    return [(v.cpu(), s.cpu()) for v, s in out]
+
+
+class NaiveFriIop:
+    """Reference NaiveFriIop<F, TrivialBlake2sIOP> (src/fri/mod.rs:64-104)."""
+
+    DEGREE = 2
+
+    # --------------------------------------------------------- prover
+
+    @staticmethod
+    def proof_from_lde(ops: LimbOps, lde_values, lde_factor: int,
+                       output_coeffs_at_degree_plus_one: int) -> FRIProofPrototype:
+        """Port of src/fri/fri_on_values.rs:11-163. lde_values: (N, L)."""
+        return NaiveFriIop.proofs_from_ldes(
+            ops, [lde_values], lde_factor, output_coeffs_at_degree_plus_one)[0]
+
+    @staticmethod
+    def proofs_from_ldes(ops: LimbOps, ldes, lde_factor: int,
+                         output_coeffs_at_degree_plus_one: int) -> List[FRIProofPrototype]:
+        """FRI prototypes for several polynomials (the prover's h1, h2):
+        the ladders run back to back, then one host fetch brings every
+        root."""
+        if output_coeffs_at_degree_plus_one & (output_coeffs_at_degree_plus_one - 1):
+            raise ValueError("output degree + 1 must be a power of two")
+        if lde_factor & (lde_factor - 1):
+            raise ValueError("lde factor must be a power of two")
+        chains = []
+        for lde_values in ldes:
+            n = lde_values.shape[0]
+            idpo = n // lde_factor
+            steps = log2_floor(idpo // output_coeffs_at_degree_plus_one)
+            chains.append((idpo,) + fri_chain(ops, lde_values, steps, log2_floor(n)))
+        fetch_roots([tree for chain in chains for tree in chain[1]])
+        return [
+            NaiveFriIop._assemble_prototype(
+                ops, trees, inter, fc, idpo, output_coeffs_at_degree_plus_one, lde_factor)
+            for idpo, trees, inter, fc in chains
+        ]
+
+    @staticmethod
+    def _assemble_prototype(ops, trees, intermediate_values, final_coeffs,
+                            initial_degree_plus_one, output_coeffs_at_degree_plus_one,
+                            lde_factor) -> FRIProofPrototype:
+        """Host-side prototype assembly from a ladder's outputs."""
+        field = ops.field
+        root_bytes = [tree.get_root() for tree in trees]
+        # all tree challenges except the last tree's (the final fold
+        # draws none, fri_on_values.rs:122)
+        challenges = [field.from_be_with_shave(rb) for rb in root_bytes[:-1]]
+        roots = root_bytes[1:]
+        final_root = roots[-1] if roots else root_bytes[0]
+        final_coeffs = [int(v) for v in ops.decode(final_coeffs)][
+            :output_coeffs_at_degree_plus_one
+        ]
+        return FRIProofPrototype(
+            l0_commitment=trees[0],
+            intermediate_commitments=list(trees[1:]),
+            intermediate_values=list(intermediate_values),
+            challenges=challenges,
+            final_root=final_root,
+            final_coefficients=final_coeffs,
+            initial_degree_plus_one=initial_degree_plus_one,
+            output_coeffs_at_degree_plus_one=output_coeffs_at_degree_plus_one,
+            lde_factor=lde_factor,
+        )
+
+    @staticmethod
+    def proof_from_lde_through_coefficients(
+        ops: LimbOps, lde_values, lde_factor: int, output_coeffs_at_degree_plus_one: int
+    ) -> FRIProofPrototype:
+        """Test cross-check prover (src/fri/mod.rs:156-249): fold in
+        coefficient space, re-LDE and commit each round."""
+        field = ops.field
+        n = lde_values.shape[0]
+        l0 = MerkleTree.create(lde_values, field)
+        initial_degree_plus_one = n // lde_factor
+        num_steps = log2_floor(initial_degree_plus_one // output_coeffs_at_degree_plus_one)
+
+        coeffs = intt(ops, lde_values)[:initial_degree_plus_one]
+        challenges = [l0.get_challenge_scalar_from_root()]
+        intermediate_commitments: List[MerkleTree] = []
+        intermediate_values = []
+        roots: List[bytes] = []
+        for _ in range(num_steps):
+            c = ops.const(challenges[-1])
+            # next[j] = a_{2j} + challenge * a_{2j+1}
+            coeffs = ops.add(coeffs[0::2], ops.mul(coeffs[1::2], c))
+            values = lde(ops, coeffs, lde_factor)
+            tree = MerkleTree.create(values, field)
+            roots.append(tree.get_root())
+            challenges.append(tree.get_challenge_scalar_from_root())
+            intermediate_commitments.append(tree)
+            intermediate_values.append(values)
+
+        challenges.pop()
+        final_root = roots[-1] if roots else l0.get_root()
+        final_coeffs = [int(v) for v in ops.decode(coeffs)]
+        return FRIProofPrototype(
+            l0_commitment=l0,
+            intermediate_commitments=intermediate_commitments,
+            intermediate_values=intermediate_values,
+            challenges=challenges,
+            final_root=final_root,
+            final_coefficients=final_coeffs,
+            initial_degree_plus_one=initial_degree_plus_one,
+            output_coeffs_at_degree_plus_one=output_coeffs_at_degree_plus_one,
+            lde_factor=lde_factor,
+        )
+
+    # --------------------------------------------------- query producer
+
+    @staticmethod
+    def query_plan(prototype: FRIProofPrototype, iop_values, natural_first_element_index: int):
+        """Chain-walk bookkeeping for the query producer
+        (src/fri/query_producer.rs:10-53): per round the (tree, values)
+        pair and the coset indices to open. Returns (trees, cosets,
+        chain_data, idx_arrays); the gather is left to the caller so
+        several polynomials' plans share one fetch."""
+        domain_size = prototype.initial_degree_plus_one * prototype.lde_factor
+        domain_idx = natural_first_element_index
+        trees = [prototype.l0_commitment] + list(prototype.intermediate_commitments)
+        values = [iop_values] + list(prototype.intermediate_values)
+        chain_data, idx_arrays, cosets = [], [], []
+        for tree, vals in zip(trees, values):
+            coset = coset_for_natural_index_and_size(domain_idx, domain_size)
+            cosets.append(coset)
+            chain_data.append((tree, vals))
+            idx_arrays.append(torch.tensor(coset, dtype=torch.int64, device=vals.device))
+            domain_idx, domain_size = index_and_size_for_next_domain(domain_idx, domain_size)
+        return trees, cosets, chain_data, idx_arrays
+
+    @staticmethod
+    def proof_from_gathered(prototype: FRIProofPrototype, trees, cosets, gathered,
+                            ops: LimbOps) -> FRIProof:
+        """Assemble an FRIProof from fetched (values, sibling paths)."""
+        queries: List[IopQuery] = []
+        roots: List[bytes] = []
+        for tree, coset, (v, sibs) in zip(trees, cosets, gathered):
+            vals_dec = ops.decode(v)  # (Q,) canonical ints
+            for qi, idx in enumerate(coset):
+                path = [digest_to_bytes(sibs[d, qi]) for d in range(sibs.shape[0])]
+                queries.append(IopQuery(index=idx, value=int(vals_dec[qi]), path=path))
+            roots.append(tree.get_root())
+        return FRIProof(
+            queries=queries,
+            roots=roots,
+            final_coefficients=prototype.get_final_coefficients(),
+            initial_degree_plus_one=prototype.initial_degree_plus_one,
+            output_coeffs_at_degree_plus_one=prototype.output_coeffs_at_degree_plus_one,
+            lde_factor=prototype.lde_factor,
+        )
+
+    @staticmethod
+    def prototype_into_proof(ops: LimbOps, prototype: FRIProofPrototype, iop_values,
+                             natural_first_element_index: int) -> FRIProof:
+        """Walk all rounds producing coset queries
+        (src/fri/query_producer.rs:10-53)."""
+        trees, cosets, chain_data, idx_arrays = NaiveFriIop.query_plan(
+            prototype, iop_values, natural_first_element_index
+        )
+        gathered = gather_chain_queries(chain_data, idx_arrays)
+        return NaiveFriIop.proof_from_gathered(prototype, trees, cosets, gathered, ops)
+
+    # --------------------------------------------------------- verifier
+
+    @staticmethod
+    def verify_proof(proof: FRIProof, natural_element_index: int, expected_value: int,
+                     field: Field) -> bool:
+        return NaiveFriIop.verify_proof_queries(
+            proof, natural_element_index, NaiveFriIop.DEGREE, expected_value, field
+        )
+
+    @staticmethod
+    def verify_proof_queries(
+        proof: FRIProof, natural_element_index: int, degree: int, expected_value: int,
+        field: Field
+    ) -> bool:
+        """Host scalar re-fold per query (src/fri/verifier.rs:131-289)."""
+        p = field.p
+        two_inv = field.inv(2)
+        domain = Domain.new_for_size(field, proof.initial_degree_plus_one * proof.lde_factor)
+        domain_element = field.pow(domain.generator, natural_element_index)
+        if field.pow(domain_element, domain.size) != 1:
+            raise InvalidValueError("challenge element not in LDE domain")
+        if field.pow(domain_element, domain.size // 2) == 1:
+            raise InvalidValueError("challenge element not in LDE domain")
+
+        omega = domain.generator
+        omega_inv = field.inv(omega)
+        expected = None
+        domain_size = domain.size
+        domain_idx = natural_element_index
+
+        if len(proof.queries) % degree != 0:
+            raise InvalidValueError("invalid number of queries")
+
+        def horner(x):
+            acc, power = 0, 1
+            for c in proof.final_coefficients:
+                acc = (acc + power * c) % p
+                power = power * x % p
+            return acc
+
+        last_round = len(proof.roots) - 1
+        for round_idx, root in enumerate(proof.roots):
+            qs = proof.queries[round_idx * degree : (round_idx + 1) * degree]
+            coset = coset_for_natural_index_and_size(domain_idx, domain_size)
+            if len(coset) != 2:
+                raise InvalidValueError("invalid coset size")
+            for q in qs:
+                if q.natural_index not in coset:
+                    return False
+            if round_idx == 0:
+                for q in qs:
+                    if q.natural_index == natural_element_index and q.value != expected_value:
+                        return False
+            for c, q in zip(coset, qs):
+                if q.tree_index != c:
+                    raise InvalidValueError("invalid tree index")
+            for q in qs:
+                if not verify_path(root, q.value, q.path, q.tree_index, field):
+                    return False
+
+            if expected is not None:
+                if domain_idx not in coset:
+                    return False
+                matching = [q for q in qs if q.natural_index == domain_idx]
+                if len(matching) != 1 or matching[0].value != expected:
+                    return False
+
+            if round_idx == last_round:
+                # The last committed vector IS the claimed low-degree
+                # polynomial: every queried point is checked against the
+                # committed coefficients (hodor_tpu/fri/fri.py explains
+                # how this generalizes the reference's output-degree-1
+                # check).
+                for c, q in zip(coset, qs):
+                    if q.value != horner(field.pow(omega, c)):
+                        return False
+                return True
+
+            challenge = field.from_be_with_shave(root)
+            f_at_omega = qs[0].value
+            f_at_minus_omega = qs[1].value
+            divisor = field.pow(omega_inv, coset[0])
+            v_even = (f_at_omega + f_at_minus_omega) % p
+            v_odd = (f_at_omega - f_at_minus_omega) * divisor % p
+            expected = (v_even + challenge * v_odd) * two_inv % p
+
+            domain_idx, domain_size = index_and_size_for_next_domain(domain_idx, domain_size)
+            omega = field.mul(omega, omega)
+            omega_inv = field.mul(omega_inv, omega_inv)
+
+        raise InvalidValueError("no FRI rounds present")
+
+    @staticmethod
+    def verify_prototype(ops: LimbOps, prototype: FRIProofPrototype, leaf_values,
+                         natural_element_index: int) -> bool:
+        """Full-values verifier for tests (src/fri/verifier.rs:10-129)."""
+        field = ops.field
+        p = field.p
+        two_inv = field.inv(2)
+        domain = Domain.new_for_size(field, prototype.initial_degree_plus_one * prototype.lde_factor)
+        omega = domain.generator
+        omega_inv = field.inv(omega)
+        expected = None
+        domain_size = domain.size
+        domain_idx = natural_element_index
+
+        all_values = [leaf_values] + list(prototype.intermediate_values)
+        for vals, challenge in zip(all_values, prototype.challenges):
+            coset = coset_for_natural_index_and_size(domain_idx, domain_size)
+            f_at_omega = int(ops.decode(vals[coset[0]]))
+            if expected is not None:
+                if domain_idx not in coset:
+                    return False
+                if int(ops.decode(vals[domain_idx])) != expected:
+                    return False
+            f_at_minus_omega = int(ops.decode(vals[coset[1]]))
+            divisor = field.pow(omega_inv, coset[0])
+            v_even = (f_at_omega + f_at_minus_omega) % p
+            v_odd = (f_at_omega - f_at_minus_omega) * divisor % p
+            expected = (v_even + challenge * v_odd) * two_inv % p
+            domain_idx, domain_size = index_and_size_for_next_domain(domain_idx, domain_size)
+            omega = field.mul(omega, omega)
+            omega_inv = field.mul(omega_inv, omega_inv)
+
+        point = field.pow(omega, domain_idx)
+        acc, power = 0, 1
+        for c in prototype.final_coefficients:
+            acc = (acc + power * c) % p
+            power = power * point % p
+        return acc == expected

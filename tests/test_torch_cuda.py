@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain versions, and the whole
+port against the golden vectors, on an NVIDIA GPU. Marked `cuda`: they
+skip where torch sees no card. On a machine with one:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(--noconftest: tests/conftest.py sets up JAX, which these tests do not
+use and a GPU machine may not have.)
+
+The shapes are small and ragged (no multiple of a block size), so every
+kernel's edge masking runs. Equality is exact (canonical outputs)."""
+
+import json
+import os
+
+import pytest
+import torch
+
+from hodor_tpu_torch.field import F257, F_STARK, LimbOps
+from hodor_tpu_torch.field import kernels as K
+from hodor_tpu_torch.merkle.blake2s import keyed_midstate
+from hodor_tpu_torch.ntt.matmul import dft_matrix
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+FIELDS = {"F_STARK": F_STARK, "F257": F257}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    K.build_kernels()
+    return torch.device("cuda", 0)
+
+
+def _canonical(field, shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    if field.num_bits < 31:
+        low = torch.randint(0, field.p, shape + (1,), generator=g, dtype=torch.int32)
+        return torch.cat([low, torch.zeros(shape + (field.n16 - 1,), dtype=torch.int32)], -1)
+    limbs = torch.randint(0, 1 << 16, shape + (field.n16,), generator=g, dtype=torch.int32)
+    limbs[..., -1] &= (1 << (field.num_bits - 1 - 16 * (field.n16 - 1))) - 1
+    return limbs
+
+
+def _same(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_mont_mul_and_addsub_kernels(dev, name):
+    field = FIELDS[name]
+    a = _canonical(field, (3, 1001), 1)
+    b = _canonical(field, (1001,), 2)
+    s = _canonical(field, (), 3)
+    for x, y in ((a, b), (a, s), (a[:, ::3], a[:, 1::3]), (a.transpose(0, 1), b[:, None])):
+        xd, yd = x.to(dev), y.to(dev)
+        _same(K.mont_mul(field, xd, yd), K.mont_mul_plain(field, x, y))
+        for mode in ("add", "sub"):
+            _same(K.addsub(field, xd, yd, mode), K.addsub_plain(field, x, y, mode))
+    before = dict(K.launch_counts)
+    K.mont_mul(field, a.to(dev), b.to(dev))
+    assert K.launch_counts["mont_mul"] == before["mont_mul"] + 1
+
+
+@pytest.mark.parametrize("message_bytes", [32, 64])
+def test_blake2s_kernel(dev, message_bytes):
+    g = torch.Generator().manual_seed(4)
+    words = torch.randint(-(1 << 31), 1 << 31, (777, message_bytes // 4), generator=g,
+                          dtype=torch.int32)
+    mid = keyed_midstate()
+    _same(K.blake2s(words.to(dev), message_bytes, mid),
+          K.blake2s_plain(words, message_bytes, mid))
+
+
+@pytest.mark.parametrize("size,cols,tw", [(2, 3, "table"), (8, 1, "scalar"), (64, 5, None),
+                                           (128, 7, "table"), (128, 1, "scalar")])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_ntt_level_kernel(dev, name, size, cols, tw):
+    field = FIELDS[name]
+    if size > 1 << field.S:
+        pytest.skip("domain larger than the field's 2-adicity")
+    ops = LimbOps(field, "cpu")
+    x = _canonical(field, (3, size, cols), 5)
+    t = {"table": _canonical(field, (size, cols), 6), "scalar": _canonical(field, (), 7),
+         None: None}[tw]
+    w = dft_matrix(ops, size, False)
+    got = K.ntt_level(field, x.to(dev), w.to(dev), None if t is None else t.to(dev))
+    _same(got, K.ntt_level_plain(field, x, w, t))
+
+
+@pytest.mark.parametrize("name", ["fib_f257", "vdf_fstark_t32"])
+def test_goldens_on_the_card(dev, name):
+    from hodor_tpu_torch import air
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.verifier import Verifier
+
+    if name == "fib_f257":
+        field = F257
+        fib = air.Fibonacci(field, final_b=5, at_step=3)
+        tracer = air.TestTraceSystem(field)
+        fib.trace(tracer)
+        tracer.calculate_witness(1, 1, 3)
+        witness, props = tracer.into_arp()
+    else:
+        field = F_STARK
+        witness, props = VDF(field, 1, 2, 31).into_arp()
+    prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev)
+    proof = prover.prove(witness)
+    assert Verifier(props, lde_factor=16).verify(proof)
+    golden = os.path.join(os.path.dirname(__file__), "golden")
+    with open(os.path.join(golden, f"{name}.proof"), "rb") as f:
+        assert serialize_proof(proof, field) == f.read()
+    with open(os.path.join(golden, f"{name}.challenges.json")) as f:
+        expected = [tuple(e) for e in json.load(f)]
+    assert [(k, v if isinstance(v, str) else str(v))
+            for k, v in prover.last_transcript.log] == expected
