@@ -7,20 +7,29 @@ Phases, each reported on its own line:
   1. device: a CUDA card is required (there is no CPU path); prints the
      card's name and power limit from nvidia-smi;
   2. build: compiles the CUDA kernels from hodor_tpu_torch/csrc into
-     build/ and prints the build seconds;
-  3. kernels: each kernel against its plain PyTorch version on the card,
-     on seeded random canonical inputs at the shapes the prove gives it;
+     build/ (one nvcc per source, all at once) and prints the seconds;
+  3. kernels: each of the seven kernels (and s8dot, the contraction of
+     dft_reduce alone) against its plain PyTorch version on the card, on
+     seeded random canonical inputs at the shapes the prove gives it;
      outputs must be bit-equal (tolerance 0: every output is canonical);
-     kernel and plain times from CUDA events after a warm-up;
-  4. goldens: the port proves fib_f257 and vdf_fstark_t32 on the card;
-     proof bytes and challenge logs must equal tests/golden/, and the
-     port's verifier must accept;
-  5. at size: a quadratic VDF over F_STARK at 2^20 rows,
-     lde factor 16, FRI to a constant: prover set-up, a cold and a warm
-     prove with synchronized stage walls and peak device memory, the
-     verifier's acceptance and its rejection of a tampered proof. Launch
-     counts are zeroed just before the set-up and read after the cold
-     prove and its verify; every kernel must have launched.
+     kernel and plain times from CUDA events after a warm-up, beside the
+     least time the card could take (bytes over 3.35 TB/s or operations
+     over the peak of their type, whichever is larger) and, where one
+     PyTorch call computes the same function, that call's time. Then the
+     three forms of the NTT level on one x and twiddle table, bit-equal;
+  4. goldens: the port proves fib_f257, vdf_fstark_t32 and
+     cubic_vdf_fstark_t32 on the card, and vdf_fstark_t32 again under
+     the "two_step" and "fused" level forms; proof bytes and challenge
+     logs must equal tests/golden/, and the port's verifier must accept;
+  5. main path at size: a quadratic VDF over F_STARK at 2^20 rows, lde
+     factor 16, FRI to a constant: prover set-up, a cold and a warm prove
+     with synchronized stage walls and peak device memory, the verifier's
+     acceptance and its rejection of a tampered proof;
+  6. the cubic VDF (4 registers) the same way at 2^20 rows;
+  7. the quadratic VDF at 2^16 rows under each level form: the three
+     serialized proofs must be equal and each must verify.
+Every path of phases 5-7 zeroes the launch counts just before it runs
+and reads them just after, and names the kernels it must have launched.
 
 The line before the last holds the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -36,13 +45,49 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LOG_ROWS = 20
+LOG_ROWS_LEVEL_FORMS = 16
+
+# Published peaks of one H100 SXM: device memory 3.35 TB/s; int8 on the
+# tensor cores 1,979 TOP/s (a multiply-add is two operations); 32-bit
+# integer operations outside the tensor cores at half the float32 lanes
+# (64 of 128 per SM and clock), so half of 67 TFLOP/s / 2 per operation.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "int32": 67e12 / 4}
 
 KERNEL_INFO = {
     "mont_mul": ("hodor_tpu_torch/csrc/mont_mul.cu", "hodor_tpu/field/pallas_kernels.py:283"),
     "addsub": ("hodor_tpu_torch/csrc/addsub.cu", "hodor_tpu/field/pallas_kernels.py:878"),
     "blake2s": ("hodor_tpu_torch/csrc/blake2s.cu", "hodor_tpu/field/pallas_kernels.py:787"),
     "ntt_level": ("hodor_tpu_torch/csrc/ntt_level.cu", "hodor_tpu/field/pallas_kernels.py:1384"),
+    "fri_fold": ("hodor_tpu_torch/csrc/fri_fold.cu", "hodor_tpu/field/pallas_kernels.py:661"),
+    "wide_reduce": ("hodor_tpu_torch/csrc/wide_reduce.cu",
+                    "hodor_tpu/field/pallas_kernels.py:475"),
+    "dft_reduce": ("hodor_tpu_torch/csrc/dft_reduce.cu",
+                   "hodor_tpu/field/pallas_kernels.py:1097"),
 }
+MAIN_PATH_KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level", "fri_fold")
+
+
+# Least 32-bit integer operations per element at n16 = 16 (8 words),
+# counted from the sources: a Montgomery product is 2 * 8 * 8 multiply-adds
+# and a compare-subtract; a modular add or sub two 8-word carry chains and a
+# select; a Blake2s block 10 rounds of 8 G at 14 operations; a level
+# output S products of 8 x 8 multiply-adds, one 8 x 8 reduction, the chain.
+OPS_MONT_MUL = 2 * 8 * 8 + 3 * 8
+OPS_ADDSUB = 3 * 8
+OPS_BLAKE2S = 10 * 8 * 14 + 40
+OPS_FRI_FOLD = 3 * OPS_MONT_MUL + 3 * OPS_ADDSUB
+OPS_WIDE_REDUCE = 4 * 63 + 8 * 8 + 3 * 3 * 8
+
+
+def ops_ntt_level(size: int, twiddle: bool) -> int:
+    return size * 8 * 8 + 8 * 8 + 3 * 3 * 8 + (OPS_MONT_MUL if twiddle else 0)
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors as stored (a broadcast operand counts
+    once)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def log(msg: str) -> None:
@@ -84,7 +129,7 @@ def phase_kernels(dev):
     from hodor_tpu_torch.field import F_STARK, LimbOps
     from hodor_tpu_torch.field import kernels as K
     from hodor_tpu_torch.merkle.blake2s import keyed_midstate
-    from hodor_tpu_torch.ntt.matmul import dft_matrix, level_twiddles
+    from hodor_tpu_torch.ntt import matmul as M
 
     field = F_STARK
     ops = LimbOps(field, dev)
@@ -92,7 +137,10 @@ def phase_kernels(dev):
     n = 1 << 20
     records = {name: {"max_abs_err": 0, "cases": []} for name in K.KERNELS}
 
-    def compare(name, case, kernel_fn, plain_fn, reps=20, plain_reps=3):
+    def compare(name, case, kernel_fn, plain_fn, moved, n_ops, op_kind="int32", library_fn=None,
+                reps=20, plain_reps=3):
+        """moved: bytes the function must move (inputs once, outputs once);
+        n_ops: its operations of kind op_kind on these inputs."""
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
@@ -103,25 +151,39 @@ def phase_kernels(dev):
         if err != 0:
             raise AssertionError(f"{name}/{case}: kernel differs from plain version, "
                                  f"max abs limb error {err}")
+        moved += nbytes(got)
+        del got, want
         ms = cuda_time_ms(kernel_fn, reps)
         plain_ms = cuda_time_ms(plain_fn, plain_reps)
+        library_ms = None if library_fn is None else cuda_time_ms(library_fn, reps)
+        by_bytes = 1e3 * moved / PEAK_BYTES_PER_S
+        by_ops = 1e3 * n_ops / PEAK_OPS_PER_S[op_kind]
         rec = records[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec["cases"].append({"case": case, "ms": ms, "plain_ms": plain_ms})
-        log(f"kernel {name:9s} {case:34s} bit-equal  kernel {ms:9.3f} ms  plain {plain_ms:10.3f} ms")
+        rec["cases"].append({
+            "case": case, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms})
+        log(f"kernel {name:11s} {case:36s} bit-equal  kernel {ms:9.3f} ms  plain {plain_ms:10.3f} ms"
+            f"  bound {max(by_bytes, by_ops):7.3f} ms ({rec['cases'][-1]['bound_by']})"
+            + ("" if library_ms is None else f"  library {library_ms:7.3f} ms"))
 
     a = random_canonical(field, (n,), gen, dev)
     b = random_canonical(field, (n,), gen, dev)
     s = random_canonical(field, (), gen, dev)
     compare("mont_mul", "2^20 x 16 limbs",
-            lambda: K.mont_mul(field, a, b), lambda: K.mont_mul_plain(field, a, b))
+            lambda: K.mont_mul(field, a, b), lambda: K.mont_mul_plain(field, a, b),
+            nbytes(a, b), n * OPS_MONT_MUL)
     compare("mont_mul", "2^20 x scalar (stride 0)",
-            lambda: K.mont_mul(field, a, s), lambda: K.mont_mul_plain(field, a, s))
+            lambda: K.mont_mul(field, a, s), lambda: K.mont_mul_plain(field, a, s),
+            nbytes(a, s), n * OPS_MONT_MUL)
     for mode in ("add", "sub"):
         compare("addsub", f"{mode} 2^20 x 16 limbs",
-                lambda: K.addsub(field, a, b, mode), lambda: K.addsub_plain(field, a, b, mode))
+                lambda: K.addsub(field, a, b, mode), lambda: K.addsub_plain(field, a, b, mode),
+                nbytes(a, b), n * OPS_ADDSUB)
     compare("addsub", "sub 2^20 x scalar (stride 0)",
-            lambda: K.addsub(field, a, s, "sub"), lambda: K.addsub_plain(field, a, s, "sub"))
+            lambda: K.addsub(field, a, s, "sub"), lambda: K.addsub_plain(field, a, s, "sub"),
+            nbytes(a, s), n * OPS_ADDSUB)
     del a, b
     # the LDE's coset shift at the f-LDE's width: coefficients (R, 1, T)
     # read with stride 0 over the factor axis, against powers (factor, T)
@@ -129,16 +191,18 @@ def phase_kernels(dev):
     pw = random_canonical(field, (16, n // 2), gen, dev)
     compare("mont_mul", "LDE shift (2,1,2^19) x (16,2^19)",
             lambda: K.mont_mul(field, coeffs, pw), lambda: K.mont_mul_plain(field, coeffs, pw),
-            reps=5, plain_reps=1)
+            nbytes(coeffs, pw), 16 * n * OPS_MONT_MUL, reps=5, plain_reps=1)
     del coeffs, pw
 
     mid = keyed_midstate()
     words = torch.randint(-(1 << 31), 1 << 31, (n, 8), generator=gen, dtype=torch.int32).to(dev)
     compare("blake2s", "2^20 leaves (32 B)",
-            lambda: K.blake2s(words, 32, mid), lambda: K.blake2s_plain(words, 32, mid))
+            lambda: K.blake2s(words, 32, mid), lambda: K.blake2s_plain(words, 32, mid),
+            nbytes(words), n * OPS_BLAKE2S)
     nodes = words.reshape(n // 2, 16)
     compare("blake2s", "2^19 nodes (64 B)",
-            lambda: K.blake2s(nodes, 64, mid), lambda: K.blake2s_plain(nodes, 64, mid))
+            lambda: K.blake2s(nodes, 64, mid), lambda: K.blake2s_plain(nodes, 64, mid),
+            nbytes(nodes), n // 2 * OPS_BLAKE2S)
     del words, nodes
 
     # NTT levels at 2^20 elements: the four-step's first level (S = 128
@@ -146,51 +210,120 @@ def phase_kernels(dev):
     # level with the scalar 1/N, and the small radices
     x = random_canonical(field, (64, 128, 128), gen, dev)
     tw = random_canonical(field, (128, 128), gen, dev)
-    w128 = dft_matrix(ops, 128, False)
+    w128 = M.dft_matrix(ops, 128, False)
     compare("ntt_level", "S=128 C=128 B=64 no twiddle",
             lambda: K.ntt_level(field, x, w128), lambda: K.ntt_level_plain(field, x, w128),
-            reps=5, plain_reps=1)
+            nbytes(x, w128), n * ops_ntt_level(128, False), reps=5, plain_reps=1)
     compare("ntt_level", "S=128 C=128 B=64 twiddle table",
             lambda: K.ntt_level(field, x, w128, tw),
-            lambda: K.ntt_level_plain(field, x, w128, tw), reps=5, plain_reps=1)
+            lambda: K.ntt_level_plain(field, x, w128, tw),
+            nbytes(x, w128, tw), n * ops_ntt_level(128, True), reps=5, plain_reps=1)
     # the first four-step level of a 2^20-point NTT (f-LDE, B = R x factor
     # of them) and of a 2^21-point one (g-LDE), with their own twiddle tables
     for log_n, bsz in ((20, 2), (21, 1)):
         cols = (1 << log_n) // 128
         xw = random_canonical(field, (bsz, 128, cols), gen, dev)
-        tww = level_twiddles(ops, 1 << log_n, 128, False)
+        tww = M.level_twiddles(ops, 1 << log_n, 128, False)
         compare("ntt_level", f"S=128 C={cols} B={bsz} 2^{log_n} twiddles",
                 lambda: K.ntt_level(field, xw, w128, tww),
-                lambda: K.ntt_level_plain(field, xw, w128, tww), reps=5, plain_reps=1)
+                lambda: K.ntt_level_plain(field, xw, w128, tww),
+                nbytes(xw, w128, tww), xw.numel() // 16 * ops_ntt_level(128, True),
+                reps=5, plain_reps=1)
     del xw, tww
     xt = x.reshape(n // 128, 128, 1, field.n16)
     ninv = ops.const(field.inv(1 << 20))
-    w128i = dft_matrix(ops, 128, True)
+    w128i = M.dft_matrix(ops, 128, True)
     compare("ntt_level", "S=128 C=1 scalar 1/N (inverse)",
             lambda: K.ntt_level(field, xt, w128i, ninv),
-            lambda: K.ntt_level_plain(field, xt, w128i, ninv), reps=5, plain_reps=1)
+            lambda: K.ntt_level_plain(field, xt, w128i, ninv),
+            nbytes(xt, w128i, ninv), n * ops_ntt_level(128, True), reps=5, plain_reps=1)
     for size in (64, 8):
         xs = x.reshape(n // size, size, 1, field.n16)
-        ws = dft_matrix(ops, size, False)
+        ws = M.dft_matrix(ops, size, False)
         compare("ntt_level", f"S={size} C=1 B=2^20/{size}",
                 lambda: K.ntt_level(field, xs, ws), lambda: K.ntt_level_plain(field, xs, ws),
+                nbytes(xs, ws), n * ops_ntt_level(size, False), reps=5, plain_reps=1)
+    del xs, xt
+
+    # the FRI fold at the first rounds of the h1 and h2 ladders of a
+    # 2^20-row prove (2^24 and 2^25 values), lo and hi the two halves of
+    # one tensor, and at edge sizes
+    two_inv = ops.two_inv_m
+    c_scaled = ops.mul(random_canonical(field, (), gen, dev), two_inv)
+    for half, label in ((1 << 23, "half=2^23"), (1 << 24, "half=2^24"), (1, "half=1"),
+                        (3, "half=3")):
+        values = random_canonical(field, (2 * half,), gen, dev)
+        wv = random_canonical(field, (half,), gen, dev)
+        lo, hi = values[:half], values[half:]
+        big = half > 3
+        compare("fri_fold", label,
+                lambda: K.fri_fold(field, lo, hi, wv, c_scaled, two_inv),
+                lambda: K.fri_fold_plain(field, lo, hi, wv, c_scaled, two_inv),
+                nbytes(values, wv, c_scaled, two_inv), half * OPS_FRI_FOLD,
+                reps=5 if big else 20, plain_reps=1 if big else 3)
+        del values, wv, lo, hi
+
+    # the two-step level's reduce and the fused level at 2^20 elements:
+    # the exact columns of x's byte-plane DFT (252 B per element), then
+    # the same x through dft_reduce; no twiddle, a table, the scalar
+    w_s8, w_sum = M.folded_dft_matrix(ops, 128, False)
+    x_s8 = M.encode_s8(x).contiguous()
+    columns = K.dft_columns_plain(w_s8, w_sum, x_s8)
+    for label, t in (("no twiddle", None), ("twiddle table", tw), ("scalar twiddle", ninv)):
+        compare("wide_reduce", f"2^20 elements radix 128 {label}",
+                lambda: K.wide_reduce(field, columns, 128, t),
+                lambda: K.wide_reduce_plain(field, columns, 128, t),
+                nbytes(columns, t), n * (OPS_WIDE_REDUCE + (OPS_MONT_MUL if t is not None else 0)),
                 reps=5, plain_reps=1)
+    del columns
+    for label, t in (("no twiddle", None), ("twiddle table", tw), ("scalar twiddle", ninv)):
+        compare("dft_reduce", f"(64,128,128) {label}",
+                lambda: K.dft_reduce(field, w_s8, w_sum, x_s8, 128, t),
+                lambda: K.dft_reduce_plain(field, w_s8, w_sum, x_s8, 128, t),
+                nbytes(w_s8, w_sum, x_s8, t), n * 2 * w_s8.shape[0] * w_s8.shape[2], "int8",
+                reps=3, plain_reps=1)
+    del x_s8
+    sa = torch.randint(-128, 128, (128, 512), generator=gen, dtype=torch.int8).to(dev)
+    sb = torch.randint(-128, 128, (512, 128), generator=gen, dtype=torch.int8).to(dev)
+    want = (sa.cpu().to(torch.int32) @ sb.cpu().to(torch.int32)).to(dev)
+    if not torch.equal(K.s8dot_plain(sa, sb), want):
+        raise AssertionError("s8dot_plain differs from the int32 product")
+    compare("dft_reduce", "s8dot (128,512).(512,128)",
+            lambda: K.s8dot(sa, sb), lambda: K.s8dot_plain(sa, sb),
+            nbytes(sa, sb), 2 * 128 * 512 * 128, "int8",
+            library_fn=lambda: torch._int_mm(sa, sb))
+
+    # the three forms of the level on the same x and twiddle table
+    forms = {}
+    for impl in ("level", "two_step", "fused"):
+        iops = LimbOps(field, dev, impl)
+        forms[impl] = M.dft_level(iops, x, False, tw)
+        ms = cuda_time_ms(lambda: M.dft_level(iops, x, False, tw), 3)
+        records["ntt_level" if impl == "level" else
+                "wide_reduce" if impl == "two_step" else "dft_reduce"]["cases"].append(
+            {"case": f"whole level, form {impl!r}, (64,128,128) twiddle table", "ms": ms})
+        log(f"level form {impl:9s} (64,128,128) twiddle table: {ms:9.3f} ms")
+    for impl in ("two_step", "fused"):
+        if not torch.equal(forms[impl], forms["level"]):
+            raise AssertionError(f"level form {impl!r} differs from 'level'")
+    log("level forms: two_step and fused bit-equal to level")
     return records
 
 
 def phase_goldens(dev) -> None:
     from hodor_tpu_torch.air import Fibonacci, TestTraceSystem
     from hodor_tpu_torch.field import F257, F_STARK
-    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.models import VDF, CubicVDF
     from hodor_tpu_torch.proof_io import serialize_proof
     from hodor_tpu_torch.prover import Prover
     from hodor_tpu_torch.verifier import Verifier
 
     golden = os.path.join(ROOT, "tests", "golden")
 
-    def check(name, witness, props, field):
+    def check(name, witness, props, field, ntt_impl="level"):
         t0 = time.perf_counter()
-        prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev)
+        prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev,
+                        ntt_impl=ntt_impl)
         proof = prover.prove(witness)
         wall = time.perf_counter() - t0
         if not Verifier(props, lde_factor=16).verify(proof):
@@ -204,8 +337,8 @@ def phase_goldens(dev) -> None:
                    for k, v in prover.last_transcript.log]
         if got_log != expected_log:
             raise AssertionError(f"{name}: challenge sequence differs from the golden vector")
-        log(f"golden {name}: proof bytes and challenge log equal, verified "
-            f"(set-up + prove {wall:.2f} s)")
+        log(f"golden {name} (ntt_impl={ntt_impl}): proof bytes and challenge log equal, "
+            f"verified (set-up + prove {wall:.2f} s)")
 
     fib = Fibonacci(F257, final_b=5, at_step=3)
     tracer = TestTraceSystem(F257)
@@ -214,62 +347,114 @@ def phase_goldens(dev) -> None:
     witness, props = tracer.into_arp()
     check("fib_f257", witness, props, F257)
     witness, props = VDF(F_STARK, 1, 2, 31).into_arp()
-    check("vdf_fstark_t32", witness, props, F_STARK)
+    for impl in ("level", "two_step", "fused"):
+        check("vdf_fstark_t32", witness, props, F_STARK, impl)
+    witness, props = CubicVDF(F_STARK, 1, 1, 31).into_arp()
+    check("cubic_vdf_fstark_t32", witness, props, F_STARK)
 
 
-def phase_at_size(dev):
-    """Returns the launch counts of the set-up + cold prove + verify."""
+def require_launched(path: str, counts, names) -> None:
+    missing = [k for k in names if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched on this path: {missing}")
+
+
+def phase_at_size(dev, label: str, model):
+    """Set-up, cold and warm prove, verify and a tampered proof for one
+    model at 2^LOG_ROWS rows. Returns the launch counts of the set-up +
+    cold prove + verify."""
     import torch
 
-    from hodor_tpu_torch.field import F_STARK
     from hodor_tpu_torch.field import kernels as K
-    from hodor_tpu_torch.models import VDF
     from hodor_tpu_torch.prover import Prover
     from hodor_tpu_torch.verifier import Verifier
 
-    field = F_STARK
+    field = model.field
     t0 = time.perf_counter()
-    witness, props = VDF(field, 1, 2, (1 << LOG_ROWS) - 1).into_arp()
-    log(f"at size: quadratic VDF 2^{LOG_ROWS} rows, witness {time.perf_counter() - t0:.2f} s")
+    witness, props = model.into_arp()
+    log(f"{label}: 2^{LOG_ROWS} rows, {props.num_registers} registers, "
+        f"witness {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
     prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev)
     torch.cuda.synchronize()
-    log(f"at size: prover set-up {time.perf_counter() - t0:.3f} s")
+    log(f"{label}: prover set-up {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     proof = prover.prove(witness)
     cold = time.perf_counter() - t0
     verifier = Verifier(props, lde_factor=16)
     t0 = time.perf_counter()
     if not verifier.verify(proof):
-        raise AssertionError("the verifier rejects the 2^%d-row proof" % LOG_ROWS)
+        raise AssertionError(f"{label}: the verifier rejects the 2^{LOG_ROWS}-row proof")
     verify_s = time.perf_counter() - t0
     counts = dict(K.launch_counts)
     peak_cold = torch.cuda.max_memory_allocated()
-    log(f"at size: cold prove {cold:.3f} s (stage walls: {prover.last_timings.to_json()})")
-    log(f"at size: verify {verify_s:.3f} s -> accepted")
-    log(f"at size: launches in set-up + cold prove + verify: {json.dumps(counts)}")
+    log(f"{label}: cold prove {cold:.3f} s (stage walls: {prover.last_timings.to_json()})")
+    log(f"{label}: verify {verify_s:.3f} s -> accepted")
+    log(f"{label}: launches in set-up + cold prove + verify: {json.dumps(counts)}")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     proof = prover.prove(witness)
     warm = time.perf_counter() - t0
     peak_warm = torch.cuda.max_memory_allocated()
-    log(f"at size: warm prove {warm:.3f} s (stage walls: {prover.last_timings.to_json()})")
-    log(f"at size: peak device memory cold {peak_cold / 2**30:.3f} GiB, "
+    log(f"{label}: warm prove {warm:.3f} s (stage walls: {prover.last_timings.to_json()})")
+    log(f"{label}: peak device memory cold {peak_cold / 2**30:.3f} GiB, "
         f"warm {peak_warm / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
     if not verifier.verify(proof):
-        raise AssertionError("the verifier rejects the warm proof")
+        raise AssertionError(f"{label}: the verifier rejects the warm proof")
     proof.f_at_z_m[0] = (proof.f_at_z_m[0] + 1) % field.p
     if verifier.verify(proof):
-        raise AssertionError("the verifier accepts a tampered f_at_z_m[0]")
-    log("at size: warm proof accepted; tampered f_at_z_m[0] rejected")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"{label}: the verifier accepts a tampered f_at_z_m[0]")
+    log(f"{label}: warm proof accepted; tampered f_at_z_m[0] rejected")
+    require_launched(label, counts, MAIN_PATH_KERNELS)
+    return counts
+
+
+def phase_level_forms(dev):
+    """The quadratic VDF at 2^LOG_ROWS_LEVEL_FORMS rows under each form of
+    the NTT level. Returns {form: launch counts of set-up + prove}."""
+    import torch
+
+    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.verifier import Verifier
+
+    witness, props = VDF(F_STARK, 1, 2, (1 << LOG_ROWS_LEVEL_FORMS) - 1).into_arp()
+    verifier = Verifier(props, lde_factor=16)
+    must = {"level": ("ntt_level",), "two_step": ("wide_reduce",), "fused": ("dft_reduce",)}
+    proofs, counts = {}, {}
+    for impl in ("level", "two_step", "fused"):
+        torch.cuda.empty_cache()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev,
+                        ntt_impl=impl)
+        proof = prover.prove(witness)
+        wall = time.perf_counter() - t0
+        counts[impl] = dict(K.launch_counts)
+        if not verifier.verify(proof):
+            raise AssertionError(f"level form {impl!r}: the verifier rejects the proof")
+        proofs[impl] = serialize_proof(proof, F_STARK)
+        label = f"level forms: 2^{LOG_ROWS_LEVEL_FORMS} rows under {impl!r}"
+        log(f"{label}: set-up + prove {wall:.3f} s, verified "
+            f"(stage walls: {prover.last_timings.to_json()})")
+        log(f"{label}: launches {json.dumps(counts[impl])}")
+        require_launched(label, counts[impl], must[impl] + ("mont_mul", "addsub", "blake2s",
+                                                            "fri_fold"))
+        others = [k for kk, v in must.items() if kk != impl for k in v]
+        if any(counts[impl][k] for k in others):
+            raise AssertionError(f"{label}: another form's kernel launched: {counts[impl]}")
+    if not (proofs["level"] == proofs["two_step"] == proofs["fused"]):
+        raise AssertionError("the proofs under the three level forms differ")
+    log(f"level forms: the three serialized proofs are equal ({len(proofs['level'])} bytes)")
     return counts
 
 
@@ -281,7 +466,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from hodor_tpu_torch.field import F_STARK
     from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.models import VDF, CubicVDF
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -298,17 +485,36 @@ def main() -> int:
 
     records = phase_kernels(dev)
     phase_goldens(dev)
-    counts = phase_at_size(dev)
+    rows = (1 << LOG_ROWS) - 1
+    paths = {"quadratic VDF 2^20 (main path)":
+             phase_at_size(dev, "main path, quadratic VDF", VDF(F_STARK, 1, 2, rows))}
+    main_counts = paths["quadratic VDF 2^20 (main path)"]
+    log(f"main path: with the fold in one fri_fold launch a round ({main_counts['fri_fold']} "
+        f"launches), mont_mul {main_counts['mont_mul']} and addsub {main_counts['addsub']} "
+        "launches; with the fold on separate add, sub and mul launches they were 5693 and 193")
+    paths["cubic VDF 2^20"] = phase_at_size(dev, "cubic VDF", CubicVDF(F_STARK, 1, 1, rows))
+    for impl, counts in phase_level_forms(dev).items():
+        paths[f"quadratic VDF 2^{LOG_ROWS_LEVEL_FORMS}, level form {impl}"] = counts
+    never = [k for k in K.KERNELS if not any(c[k] for c in paths.values())]
+    if never:
+        raise AssertionError(f"kernels no path launched: {never}")
 
+    # a kernel's launches: those of the main path where it runs there,
+    # else those of the first path that runs it
     kernels = []
     for name in K.KERNELS:
         source, replaces = KERNEL_INFO[name]
         rec = records[name]
         first = rec["cases"][0]
+        path = next(p for p, c in paths.items() if c[name])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": rec["max_abs_err"],
-            "ms": first["ms"], "plain_ms": first["plain_ms"], "cases": rec["cases"],
+            "launches": paths[path][name], "launches_on": path,
+            "max_abs_err": rec["max_abs_err"],
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "cases": rec["cases"],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
         })
     log(f"device: {smi}")
     print(json.dumps({"kernels": kernels}))

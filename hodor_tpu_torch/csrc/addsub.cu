@@ -20,21 +20,13 @@ __global__ void addsub_kernel(int32_t* __restrict__ out, const int32_t* __restri
   constexpr int NW = N16 / 2;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  uint32_t x[NW], y[NW], r[NW], alt[NW];
+  uint32_t x[NW], y[NW], r[NW];
   load_words<NW>(element_at(a, as, dims, i), x);
   load_words<NW>(element_at(b, bs, dims, i), y);
-  if (mode == 0) {
-    uint32_t carry = add_words<NW>(r, x, y);
-    uint32_t borrow = sub_words<NW>(alt, r, fc.p);
-    bool ge = carry != 0 || borrow == 0;
-#pragma unroll
-    for (int k = 0; k < NW; ++k) r[k] = ge ? alt[k] : r[k];
-  } else {
-    uint32_t borrow = sub_words<NW>(r, x, y);
-    add_words<NW>(alt, r, fc.p);
-#pragma unroll
-    for (int k = 0; k < NW; ++k) r[k] = borrow ? alt[k] : r[k];
-  }
+  if (mode == 0)
+    mod_add<NW>(r, x, y, fc);
+  else
+    mod_sub<NW>(r, x, y, fc);
   store_words<NW>(out + i * N16, r);
 }
 
@@ -46,8 +38,7 @@ static int launch_addsub(int mode, int32_t* out, const int32_t* a, const long lo
   Strides3 bs{{b_strides[0], b_strides[1], b_strides[2]}};
   Dims3 d{{dims[0], dims[1], dims[2]}};
   long long total = dims[0] * dims[1] * dims[2];
-  FieldConsts fc{};
-  for (int i = 0; i < N16 / 2; ++i) fc.p[i] = p_words[i];
+  const FieldConsts fc = make_field_consts(N16 / 2, p_words, 0);
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   addsub_kernel<N16><<<(unsigned)blocks, threads, 0, stream>>>(out, a, as, b, bs, d, total,

@@ -20,6 +20,32 @@ struct FieldConsts {
   uint32_t pinv0;  // -p^-1 mod 2^32
 };
 
+// A level's constants: the field and the conditional-subtract chain that
+// brings the Montgomery reduction of a radix-term sum below p.
+struct LevelConsts {
+  FieldConsts f;
+  uint32_t chain[kMaxChain][kMaxWords];
+  int n_chain;
+};
+
+inline FieldConsts make_field_consts(int nw, const uint32_t* p_words, uint32_t pinv0) {
+  FieldConsts fc{};
+  for (int i = 0; i < nw; ++i) fc.p[i] = p_words[i];
+  fc.pinv0 = pinv0;
+  return fc;
+}
+
+// chain: n_chain multiples of p, nw words each.
+inline LevelConsts make_level_consts(int nw, const uint32_t* p_words, uint32_t pinv0,
+                                     const uint32_t* chain, int n_chain) {
+  LevelConsts lc{};
+  lc.f = make_field_consts(nw, p_words, pinv0);
+  for (int s = 0; s < n_chain; ++s)
+    for (int i = 0; i < nw; ++i) lc.chain[s][i] = chain[s * nw + i];
+  lc.n_chain = n_chain;
+  return lc;
+}
+
 // Element strides (in int32 units) of a broadcast operand over the
 // output's index space collapsed to three dims; 0 marks a broadcast dim.
 struct Strides3 {
@@ -44,6 +70,28 @@ __device__ __forceinline__ void store_words(int32_t* limbs, const uint32_t (&w)[
     limbs[2 * i] = (int32_t)(w[i] & 0xFFFFu);
     limbs[2 * i + 1] = (int32_t)(w[i] >> 16);
   }
+}
+
+// The same through 16-byte loads and stores; limbs must be 16-byte
+// aligned (every element of a limb tensor is: n16 is a multiple of 4).
+template <int NW>
+__device__ __forceinline__ void load_words_v4(const int32_t* limbs, uint32_t (&w)[NW]) {
+  const int4* v = reinterpret_cast<const int4*>(limbs);
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) {
+    const int4 q = v[i];
+    w[2 * i] = (uint32_t)q.x | ((uint32_t)q.y << 16);
+    w[2 * i + 1] = (uint32_t)q.z | ((uint32_t)q.w << 16);
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ void store_words_v4(int32_t* limbs, const uint32_t (&w)[NW]) {
+  int4* v = reinterpret_cast<int4*>(limbs);
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i)
+    v[i] = make_int4((int)(w[2 * i] & 0xFFFFu), (int)(w[2 * i] >> 16),
+                     (int)(w[2 * i + 1] & 0xFFFFu), (int)(w[2 * i + 1] >> 16));
 }
 
 // d = a - b; returns the borrow out (1 when a < b).
@@ -81,6 +129,29 @@ __device__ __forceinline__ void cond_sub(uint32_t (&u)[NW], const uint32_t* m) {
   uint32_t borrow = sub_words<NW>(d, u, m);
 #pragma unroll
   for (int i = 0; i < NW; ++i) u[i] = borrow ? u[i] : d[i];
+}
+
+// r = a + b mod p; a, b < p.
+template <int NW>
+__device__ __forceinline__ void mod_add(uint32_t (&r)[NW], const uint32_t (&a)[NW],
+                                        const uint32_t (&b)[NW], const FieldConsts& fc) {
+  uint32_t alt[NW];
+  const uint32_t carry = add_words<NW>(r, a, b);
+  const uint32_t borrow = sub_words<NW>(alt, r, fc.p);
+  const bool ge = carry != 0 || borrow == 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r[k] = ge ? alt[k] : r[k];
+}
+
+// r = a - b mod p; a, b < p.
+template <int NW>
+__device__ __forceinline__ void mod_sub(uint32_t (&r)[NW], const uint32_t (&a)[NW],
+                                        const uint32_t (&b)[NW], const FieldConsts& fc) {
+  uint32_t alt[NW];
+  const uint32_t borrow = sub_words<NW>(r, a, b);
+  add_words<NW>(alt, r, fc.p);
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r[k] = borrow ? alt[k] : r[k];
 }
 
 // r = a * b * 2^(-32 NW) mod p by CIOS; a, b < p, r canonical (< p).
@@ -122,6 +193,47 @@ __device__ __forceinline__ void mont_mul_words(uint32_t (&r)[NW], const uint32_t
   bool ge = (t[NW] != 0) || (borrow == 0);
 #pragma unroll
   for (int i = 0; i < NW; ++i) r[i] = ge ? d[i] : lo[i];
+}
+
+// u = t * 2^(-32 NW) mod p for the integer t < radix * p^2 held in the
+// low 2 NW words of t (t[2 NW] must be 0; it takes the carry of t + m p):
+// one word-serial Montgomery reduction, then the level's subtract chain.
+template <int NW>
+__device__ __forceinline__ void mont_reduce_wide(uint32_t (&u)[NW], uint32_t (&t)[2 * NW + 1],
+                                                 const LevelConsts& lc) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t m = t[i] * lc.f.pinv0;
+    uint64_t cc = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const uint64_t s = (uint64_t)m * lc.f.p[j] + t[i + j] + cc;
+      t[i + j] = (uint32_t)s;
+      cc = s >> 32;
+    }
+#pragma unroll
+    for (int q = i + NW; q < 2 * NW + 1; ++q) {
+      const uint64_t s = (uint64_t)t[q] + cc;
+      t[q] = (uint32_t)s;
+      cc = s >> 32;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NW; ++q) u[q] = t[NW + q];
+  for (int s = 0; s < lc.n_chain; ++s) cond_sub<NW>(u, lc.chain[s]);
+}
+
+// u *= tw (Montgomery) for a level's twiddle: tw_mode 0 none, 1 one
+// scalar, 2 the table entry at tw + index * 2 NW.
+template <int NW>
+__device__ __forceinline__ void apply_twiddle(uint32_t (&u)[NW], int tw_mode, const int32_t* tw,
+                                              long long index, const FieldConsts& fc) {
+  if (tw_mode == 0) return;
+  uint32_t tv[NW], r[NW];
+  load_words_v4<NW>(tw_mode == 1 ? tw : tw + index * (2 * NW), tv);
+  mont_mul_words<NW>(r, u, tv, fc);
+#pragma unroll
+  for (int q = 0; q < NW; ++q) u[q] = r[q];
 }
 
 __device__ __forceinline__ const int32_t* element_at(const int32_t* base, const Strides3& st,

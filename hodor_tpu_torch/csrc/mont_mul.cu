@@ -38,9 +38,7 @@ static int launch_mont_mul(int32_t* out, const int32_t* a, const long long* a_st
   Strides3 bs{{b_strides[0], b_strides[1], b_strides[2]}};
   Dims3 d{{dims[0], dims[1], dims[2]}};
   long long total = dims[0] * dims[1] * dims[2];
-  FieldConsts fc{};
-  for (int i = 0; i < N16 / 2; ++i) fc.p[i] = p_words[i];
-  fc.pinv0 = pinv0;
+  const FieldConsts fc = make_field_consts(N16 / 2, p_words, pinv0);
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   mont_mul_kernel<N16><<<(unsigned)blocks, threads, 0, stream>>>(out, a, as, b, bs, d, total, fc);

@@ -28,12 +28,6 @@ constexpr int kTileK = 8;
 constexpr int kTileCols = 32;
 constexpr int kTileJ = 8;
 
-struct LevelConsts {
-  FieldConsts f;
-  uint32_t chain[kMaxChain][kMaxWords];
-  int n_chain;
-};
-
 template <int N16>
 __global__ void __launch_bounds__(kTileK * kTileCols)
     ntt_level_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x,
@@ -115,37 +109,9 @@ __global__ void __launch_bounds__(kTileK * kTileCols)
     t[q] = (uint32_t)s;
     carry = s >> 32;
   }
-  // word-serial Montgomery reduction: t += m_i * p * 2^(32 i)
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    const uint32_t m = t[i] * lc.f.pinv0;
-    uint64_t cc = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      const uint64_t s = (uint64_t)m * lc.f.p[j] + t[i + j] + cc;
-      t[i + j] = (uint32_t)s;
-      cc = s >> 32;
-    }
-#pragma unroll
-    for (int q = i + NW; q < 2 * NW + 1; ++q) {
-      const uint64_t s = (uint64_t)t[q] + cc;
-      t[q] = (uint32_t)s;
-      cc = s >> 32;
-    }
-  }
   uint32_t u[NW];
-#pragma unroll
-  for (int q = 0; q < NW; ++q) u[q] = t[NW + q];
-  for (int s = 0; s < lc.n_chain; ++s) cond_sub<NW>(u, lc.chain[s]);
-
-  if (tw_mode != 0) {
-    const int32_t* tp = tw_mode == 1 ? tw : tw + ((long long)k * cols + c) * N16;
-    uint32_t tv[NW], r[NW];
-    load_words<NW>(tp, tv);
-    mont_mul_words<NW>(r, u, tv, lc.f);
-#pragma unroll
-    for (int q = 0; q < NW; ++q) u[q] = r[q];
-  }
+  mont_reduce_wide<NW>(u, t, lc);
+  apply_twiddle<NW>(u, tw_mode, tw, (long long)k * cols + c, lc.f);
   store_words<NW>(out + ((b * size + k) * cols + c) * N16, u);
 }
 
@@ -156,12 +122,7 @@ static int launch_ntt_level(int32_t* out, const int32_t* x, const int32_t* w, lo
                             int n_chain, cudaStream_t stream) {
   constexpr int NW = N16 / 2;
   if (n_chain > kMaxChain || size < 1 || size > 128) return (int)cudaErrorInvalidValue;
-  LevelConsts lc{};
-  for (int i = 0; i < NW; ++i) lc.f.p[i] = p_words[i];
-  lc.f.pinv0 = pinv0;
-  for (int s = 0; s < n_chain; ++s)
-    for (int i = 0; i < NW; ++i) lc.chain[s][i] = chain[s * NW + i];
-  lc.n_chain = n_chain;
+  const LevelConsts lc = make_level_consts(NW, p_words, pinv0, chain, n_chain);
   const long long total_cols = batch * cols;
   dim3 block(kTileCols, kTileK);
   dim3 grid((unsigned)((total_cols + kTileCols - 1) / kTileCols),

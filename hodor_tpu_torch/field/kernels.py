@@ -1,20 +1,28 @@
 """The hand-written CUDA kernels of the port, their wrappers and their
 plain PyTorch versions.
 
-Four kernels, one per TPU kernel on the prove path
+Seven kernels, one per TPU kernel of the JAX package
 (hodor_tpu/field/pallas_kernels.py):
 
-  mont_mul   <- pallas_mont_mul_v2 (and pallas_mont_mul)   csrc/mont_mul.cu
-  addsub     <- pallas_addsub                               csrc/addsub.cu
-  blake2s    <- pallas_blake2s                              csrc/blake2s.cu
-  ntt_level  <- pallas_ntt_level                            csrc/ntt_level.cu
+  mont_mul    <- pallas_mont_mul_v2 (and pallas_mont_mul)  csrc/mont_mul.cu
+  addsub      <- pallas_addsub                              csrc/addsub.cu
+  blake2s     <- pallas_blake2s                             csrc/blake2s.cu
+  ntt_level   <- pallas_ntt_level                           csrc/ntt_level.cu
+  fri_fold    <- pallas_fri_fold                            csrc/fri_fold.cu
+  wide_reduce <- pallas_wide_reduce                         csrc/wide_reduce.cu
+  dft_reduce  <- pallas_dft_reduce                          csrc/dft_reduce.cu
+
+`s8dot` is dft_reduce's int8 contraction exported alone (the counterpart
+of the bare int8 product probed by scripts/tpu_qualify.py check_s8dot);
+its launches count as dft_reduce's.
 
 Every wrapper dispatches on the device of its tensors and nothing else:
 a CPU tensor takes the plain version beside it (int64 torch ops, the
 same function), a CUDA tensor launches the kernel or raises. The
-kernels are compiled by nvcc from `csrc/` into one shared library under
-`build/` at the repo root on first use, keyed by a hash of the sources,
-and bound with ctypes. `launch_counts` counts each wrapper's launches.
+kernels are compiled by nvcc from `csrc/` (one nvcc per source, all
+started together) into one shared library under `build/` at the repo
+root on first use, keyed by a hash of the sources, and bound with
+ctypes. `launch_counts` counts each wrapper's launches.
 
 Field arrays are (..., n16) int32 holding 16-bit Montgomery limbs;
 Blake2s words are int32 holding u32 bit patterns.
@@ -27,6 +35,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from functools import lru_cache
 from typing import Sequence, Tuple
 
@@ -39,9 +48,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
-KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level")
+KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level", "fri_fold", "wide_reduce",
+           "dft_reduce")
 launch_counts = {name: 0 for name in KERNELS}
 
 
@@ -72,9 +82,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+def _run_all(commands):
+    """Start every command at once, wait for all, return their outputs;
+    raises with the compiler's output if one fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in commands]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(commands, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return outputs
+
+
 def build_kernels(verbose: bool = False) -> str:
     """Compile csrc/*.cu into build/libhodor_kernels_<hash>.so unless that
-    file exists, and load it. Returns the library path. With verbose, the
+    file exists, and load it. Returns the library path. Each source is
+    compiled by its own nvcc, all at once, then linked. With verbose, the
     compiler's resource report (-Xptxas -v) is printed."""
     global _lib
     srcs = _sources()
@@ -86,17 +109,18 @@ def build_kernels(verbose: bool = False) -> str:
     lib_path = os.path.join(BUILD_DIR, f"libhodor_kernels_{h.hexdigest()[:16]}.so")
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        cmd += [p for p in srcs if p.endswith(".cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stdout + res.stderr)
-        os.replace(tmp, lib_path)
+        nvcc = _nvcc()
+        extra = ["-Xptxas", "-v"] if verbose else []
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            units = [(p, os.path.join(tmp, os.path.basename(p) + ".o"))
+                     for p in srcs if p.endswith(".cu")]
+            reports = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", src, "-o", obj]
+                                for src, obj in units])
+            if verbose:
+                print("".join(reports))
+            linked = os.path.join(tmp, "lib.so")
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", linked, *[obj for _, obj in units]]])
+            os.replace(linked, lib_path)
     if _lib is None or _lib._name != lib_path:
         _lib = _bind(ctypes.CDLL(lib_path))
     return lib_path
@@ -108,7 +132,13 @@ def _bind(lib):
     lib.hodor_addsub.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.hodor_blake2s.argtypes = [vp, vp, i64, i32, vp, u32, vp]
     lib.hodor_ntt_level.argtypes = [i32, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
-    for fn in (lib.hodor_mont_mul, lib.hodor_addsub, lib.hodor_blake2s, lib.hodor_ntt_level):
+    lib.hodor_fri_fold.argtypes = [i32, vp, vp, i64, vp, i64, vp, i64, vp, vp, i64, vp, u32, vp]
+    lib.hodor_wide_reduce.argtypes = [i32, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
+    lib.hodor_dft_reduce.argtypes = [i32, vp, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp,
+                                     i32, vp]
+    lib.hodor_s8dot.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    for fn in (lib.hodor_mont_mul, lib.hodor_addsub, lib.hodor_blake2s, lib.hodor_ntt_level,
+               lib.hodor_fri_fold, lib.hodor_wide_reduce, lib.hodor_dft_reduce, lib.hodor_s8dot):
         fn.restype = ctypes.c_int
     return lib
 
@@ -145,6 +175,11 @@ def _int_limbs(value: int, n16: int) -> np.ndarray:
 
 def _words(value: int, nw: int):
     return [(value >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
+
+
+def _pinv0(field: Field) -> int:
+    """-p^-1 mod 2^32, the word-serial Montgomery constant of the kernels."""
+    return (-pow(field.p, -1, 1 << 32)) % (1 << 32)
 
 
 @lru_cache(maxsize=None)
@@ -335,7 +370,7 @@ def mont_mul(field: Field, a, b, out=None):
     code = lib.hodor_mont_mul(
         n, out.data_ptr(), a.data_ptr(), _i64_array(a_st), b.data_ptr(), _i64_array(b_st),
         _i64_array(dims), _u32_array(_words(field.p, n // 2)),
-        (-pow(field.p, -1, 1 << 32)) % (1 << 32), _stream(),
+        _pinv0(field), _stream(),
     )
     _check(code, "mont_mul")
     launch_counts["mont_mul"] += 1
@@ -474,6 +509,16 @@ def blake2s(m_words, message_bytes: int, midstate: Sequence[int]):
 
 # --------------------------------------------------------------- NTT level
 
+def _reduce_wide_plain(field: Field, t, radix: int):
+    """t: (..., 2 n16 + 1) carried limbs of an integer below radix * p^2
+    -> its Montgomery reduction t * R^-1 mod p, canonical (..., n16) int32."""
+    n = field.n16
+    u = _mont_reduce_plain(field, t)  # n + 2 limbs
+    for mult in reduction_chain(field, radix):
+        u = _cond_sub(u, torch.as_tensor(_int_limbs(mult, n + 2), device=t.device))
+    return u[..., :n].to(torch.int32)
+
+
 def ntt_level_plain(field: Field, x, w, tw=None):
     """x (B, S, C, n16), w (S, S, n16) Montgomery DFT matrix, tw None |
     (n16,) | (S, C, n16) -> (B, S, C, n16): the schoolbook wide sums
@@ -489,14 +534,36 @@ def ntt_level_plain(field: Field, x, w, tw=None):
     for j in range(size):
         prod = w64[None, :, j, None, :, None] * x64[:, None, j, :, None, :]  # (B,S,C,n,n)
         acc.index_add_(3, diag, prod.reshape(bsz, size, cols, n * n))
-    t = _carry(acc, 2 * n + 1)
-    u = _mont_reduce_plain(field, t)  # n + 2 limbs
-    for mult in reduction_chain(field, size):
-        u = _cond_sub(u, torch.as_tensor(_int_limbs(mult, n + 2), device=dev))
-    u = u[..., :n].to(torch.int32)
+    u = _reduce_wide_plain(field, _carry(acc, 2 * n + 1), size)
     if tw is not None:
         u = mont_mul_plain(field, u, tw)
     return u
+
+
+def _check_level_tw(field: Field, device, size: int, cols: int, tw) -> None:
+    """A level's twiddle: None, an (n16,) scalar or an (S, C, n16) table,
+    on the level's device, contiguous where a kernel reads it."""
+    if tw is None:
+        return
+    _check_limbs(field, tw)
+    if tw.device != device:
+        raise ValueError(f"twiddle on {tw.device}, operands on {device}")
+    if tuple(tw.shape) not in ((field.n16,), (size, cols, field.n16)):
+        raise ValueError(f"tw must be (n16,) or ({size}, {cols}, n16), got {tuple(tw.shape)}")
+    if device.type == "cuda" and not tw.is_contiguous():
+        raise ValueError("the twiddle must be contiguous")
+
+
+def _level_args(field: Field, radix: int, tw):
+    """The trailing arguments the level kernels share: twiddle mode and
+    pointer, p, -p^-1 mod 2^32, the reduction chain and its length."""
+    nw = field.n16 // 2
+    chain = reduction_chain(field, radix)
+    chain_words = [wd for m in chain for wd in _words(m, nw)]
+    tw_mode = 0 if tw is None else (1 if tw.dim() == 1 else 2)
+    return (tw_mode, tw.data_ptr() if tw is not None else None, _u32_array(_words(field.p, nw)),
+            _pinv0(field),
+            _u32_array(chain_words) if chain_words else None, len(chain))
 
 
 def ntt_level(field: Field, x, w, tw=None):
@@ -510,31 +577,245 @@ def ntt_level(field: Field, x, w, tw=None):
     bsz, size, cols, _ = x.shape
     if tuple(w.shape) != (size, size, field.n16):
         raise ValueError(f"w must be ({size}, {size}, {field.n16}), got {tuple(w.shape)}")
-    if tw is not None:
-        _check_limbs(field, x, tw)
-        if tuple(tw.shape) not in ((field.n16,), (size, cols, field.n16)):
-            raise ValueError(f"tw must be (n16,) or ({size}, {cols}, n16), got {tuple(tw.shape)}")
+    _check_level_tw(field, x.device, size, cols, tw)
     if x.device.type == "cpu":
         return ntt_level_plain(field, x, w, tw)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if not (x.is_contiguous() and w.is_contiguous() and (tw is None or tw.is_contiguous())):
+    if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("ntt_level operands must be contiguous")
     if size > 128:
         raise ValueError("ntt_level takes S <= 128")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    n = field.n16
-    chain = reduction_chain(field, size)
-    chain_words = [wd for m in chain for wd in _words(m, n // 2)]
-    tw_mode = 0 if tw is None else (1 if tw.dim() == 1 else 2)
     code = _kernels().hodor_ntt_level(
-        n, out.data_ptr(), x.data_ptr(), w.data_ptr(), bsz, size, cols, tw_mode,
-        tw.data_ptr() if tw is not None else None, _u32_array(_words(field.p, n // 2)),
-        (-pow(field.p, -1, 1 << 32)) % (1 << 32),
-        _u32_array(chain_words) if chain_words else None, len(chain), _stream(),
+        field.n16, out.data_ptr(), x.data_ptr(), w.data_ptr(), bsz, size, cols,
+        *_level_args(field, size, tw), _stream(),
     )
     _check(code, "ntt_level")
     launch_counts["ntt_level"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- FRI fold
+
+def fri_fold_plain(field: Field, lo, hi, w, c_scaled, inv2):
+    """mont(mont(lo - hi, w), c_scaled) + mont(lo + hi, inv2) on the plain
+    add, sub and mul: with c_scaled = c/2 and inv2 = 1/2 this is the fold
+    ((lo + hi) + c * w * (lo - hi)) / 2."""
+    odd = mont_mul_plain(field, mont_mul_plain(field, addsub_plain(field, lo, hi, "sub"), w),
+                         c_scaled)
+    even = mont_mul_plain(field, addsub_plain(field, lo, hi, "add"), inv2)
+    return addsub_plain(field, odd, even, "add")
+
+
+def _row_stride(t, name: str) -> int:
+    """Row stride (int32 units) of a (rows, n16) operand the kernels read
+    through 16-byte loads."""
+    if t.stride(1) != 1 or t.stride(0) % 4 or t.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be unit-stride limbs at 16-byte aligned addresses")
+    return t.stride(0)
+
+
+def fri_fold(field: Field, lo, hi, w, c_scaled, inv2, out=None):
+    """One FRI fold round, fused: mont(mont(lo - hi, w), c_scaled) +
+    mont(lo + hi, inv2). lo, hi, w: (half, n16), row-strided views allowed
+    (the two halves of the round's values are read in place); c_scaled
+    (the round's challenge times 1/2) and inv2 (1/2): (n16,) Montgomery
+    scalars on the same device. CPU: plain version. CUDA: the fri_fold
+    kernel."""
+    _check_limbs(field, lo, hi, w, c_scaled, inv2)
+    if lo.dim() != 2 or lo.shape != hi.shape or lo.shape != w.shape:
+        raise ValueError(f"lo, hi, w must share one (half, n16) shape, got {tuple(lo.shape)}, "
+                         f"{tuple(hi.shape)}, {tuple(w.shape)}")
+    if c_scaled.dim() != 1 or inv2.dim() != 1 or c_scaled.stride(0) != 1 or inv2.stride(0) != 1:
+        raise ValueError("c_scaled and inv2 must be contiguous (n16,) scalars")
+    if lo.device.type == "cpu":
+        res = fri_fold_plain(field, lo, hi, w, c_scaled, inv2)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if lo.device.type != "cuda":
+        raise ValueError(f"unsupported device {lo.device}")
+    out = _out_tensor(out, lo.shape, lo)
+    half = lo.shape[0]
+    if half == 0:
+        return out
+    n = field.n16
+    code = _kernels().hodor_fri_fold(
+        n, out.data_ptr(), lo.data_ptr(), _row_stride(lo, "lo"), hi.data_ptr(),
+        _row_stride(hi, "hi"), w.data_ptr(), _row_stride(w, "w"),
+        c_scaled.data_ptr(), inv2.data_ptr(), half,
+        _u32_array(_words(field.p, n // 2)), _pinv0(field), _stream(),
+    )
+    _check(code, "fri_fold")
+    launch_counts["fri_fold"] += 1
+    return out
+
+
+# ------------------------------------------- the two-step and fused levels
+
+def wide_reduce_plain(field: Field, cols, radix: int, tw=None):
+    """cols (4 n16 - 1, S, B, C) non-negative int32 base-256 columns of
+    t = sum_c cols[c] 256^c < radix * p^2 per element -> (B, S, C, n16):
+    t * R^-1 mod p, times the twiddle. In int64, as the JAX package's
+    _mont_reduce_wide (hodor_tpu/ntt/matmul.py): the columns fold into
+    relaxed 16-bit limbs (even columns, plus the odd columns' low bytes
+    shifted up and their high bits carried over), one carry chain, one
+    Montgomery reduction, the bound-derived subtract chain."""
+    n = field.n16
+    if bool((cols < 0).any()):
+        raise ValueError("columns must be non-negative (each below 2^31)")
+    c64 = cols.permute(2, 1, 3, 0).to(torch.int64)  # (B, S, C, 4n - 1)
+    c64 = torch.cat([c64, torch.zeros_like(c64[..., :1])], dim=-1)
+    even, odd = c64[..., 0::2], c64[..., 1::2]
+    odd_hi = torch.cat([torch.zeros_like(odd[..., :1]), odd[..., :-1] >> 8], dim=-1)
+    relaxed = even + ((odd & 0xFF) << 8) + odd_hi
+    u = _reduce_wide_plain(field, _carry(relaxed, 2 * n + 1), radix)
+    if tw is not None:
+        u = mont_mul_plain(field, u, tw)
+    return u
+
+
+def _check_columns(field: Field, cols) -> None:
+    if cols.dtype != torch.int32 or cols.dim() != 4 or cols.shape[0] != 4 * field.n16 - 1:
+        raise ValueError(f"cols must be ({4 * field.n16 - 1}, S, B, C) int32, got "
+                         f"{tuple(cols.shape)} {cols.dtype}")
+
+
+def wide_reduce(field: Field, cols, radix: int, tw=None, out=None):
+    """The reduce half of the two-step NTT level. cols: (4 n16 - 1, S, B,
+    C) int32 base-256 columns, each in [0, 2^31), of the per-element
+    integer t = sum_c cols[c] 256^c < radix * p^2. The layout is
+    plane-major: plane c is the row-major (S, B * C) matrix that one int8
+    product `W2 (planes * S, depth) @ X (depth, B * C)` writes, so no
+    transpose stands between the product and this reduce. Returns
+    (B, S, C, n16): t * R^-1 mod p, times the optional Montgomery twiddle
+    ((n16,) scalar, or an (S, C, n16) table that wraps over B), in the
+    level's own layout. CPU: plain version. CUDA: the wide_reduce kernel."""
+    _check_columns(field, cols)
+    _, size, bsz, ccols = cols.shape
+    _check_level_tw(field, cols.device, size, ccols, tw)
+    shape = (bsz, size, ccols, field.n16)
+    if cols.device.type == "cpu":
+        res = wide_reduce_plain(field, cols, radix, tw)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if cols.device.type != "cuda":
+        raise ValueError(f"unsupported device {cols.device}")
+    if not cols.is_contiguous():
+        raise ValueError("cols must be contiguous")
+    out = _out_tensor(out, shape, cols)
+    if out.numel() == 0:
+        return out
+    code = _kernels().hodor_wide_reduce(
+        field.n16, out.data_ptr(), cols.data_ptr(), bsz, size, ccols,
+        *_level_args(field, radix, tw), _stream(),
+    )
+    _check(code, "wide_reduce")
+    launch_counts["wide_reduce"] += 1
+    return out
+
+
+def s8dot_plain(a, b):
+    """(M, K) int8 . (K, N) int8 -> (M, N) int32, exact: the products sum
+    in float64 (exact below 2^53; a depth-K sum stays below K * 2^14)."""
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+
+
+def s8dot(a, b):
+    """Exact int8 product (M, K) . (K, N) -> (M, N) int32: the contraction
+    stage of dft_reduce alone. CPU: plain version. CUDA: the s8dot entry of
+    the dft_reduce kernel."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 2 or b.dim() != 2 \
+            or a.shape[1] != b.shape[0]:
+        raise ValueError(f"expected (M, K) and (K, N) int8, got {tuple(a.shape)} {a.dtype}, "
+                         f"{tuple(b.shape)} {b.dtype}")
+    if a.device != b.device:
+        raise ValueError(f"operands on different devices: {a.device} vs {b.device}")
+    if a.device.type == "cpu":
+        return s8dot_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("s8dot operands must be contiguous")
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.int32, device=a.device)
+    if out.numel() == 0 or a.shape[1] == 0:
+        return out.zero_()
+    code = _kernels().hodor_s8dot(out.data_ptr(), a.data_ptr(), b.data_ptr(), a.shape[0],
+                                  a.shape[1], b.shape[1], _stream())
+    _check(code, "s8dot")
+    launch_counts["dft_reduce"] += 1
+    return out
+
+
+def _check_dft_operands(field: Field, w_s8, w_sum, x_s8, radix: int):
+    planes, depth = 4 * field.n16 - 1, radix * 2 * field.n16
+    if w_s8.dtype != torch.int8 or tuple(w_s8.shape) != (planes, radix, depth):
+        raise ValueError(f"w_s8 must be ({planes}, {radix}, {depth}) int8, got "
+                         f"{tuple(w_s8.shape)} {w_s8.dtype}")
+    if w_sum.dtype != torch.int32 or tuple(w_sum.shape) != (planes, radix):
+        raise ValueError(f"w_sum must be ({planes}, {radix}) int32, got "
+                         f"{tuple(w_sum.shape)} {w_sum.dtype}")
+    if x_s8.dtype != torch.int8 or x_s8.dim() != 3 or x_s8.shape[2] != depth:
+        raise ValueError(f"x_s8 must be (B, C, {depth}) int8, got {tuple(x_s8.shape)} "
+                         f"{x_s8.dtype}")
+    if not (w_s8.device == w_sum.device == x_s8.device):
+        raise ValueError("dft_reduce operands on different devices")
+
+
+def dft_columns_plain(w_s8, w_sum, x_s8):
+    """The exact base-256 columns of the byte-plane DFT from its -128
+    offset operands: (planes, S, B, C) int32,
+      cols[c, k, b, m] = sum_d (w_s8[c, k, d] + 128) (x_s8[b, m, d] + 128)
+                       = dot + 128 sx[b, m] + 128 w_sum[c, k] - 128^2 depth
+    with sx the sum of the unshifted x bytes."""
+    planes, size, depth = w_s8.shape
+    bsz, ccols, _ = x_s8.shape
+    dot = s8dot_plain(w_s8.reshape(planes * size, depth), x_s8.reshape(bsz * ccols, depth).t())
+    sx = x_s8.sum(dim=-1, dtype=torch.int32) + 128 * depth  # (B, C)
+    cols = dot.reshape(planes, size, bsz, ccols)
+    return cols + 128 * sx[None, None] + (128 * w_sum - 128 * 128 * depth)[:, :, None, None]
+
+
+def dft_reduce_plain(field: Field, w_s8, w_sum, x_s8, radix: int, tw=None):
+    return wide_reduce_plain(field, dft_columns_plain(w_s8, w_sum, x_s8), radix, tw)
+
+
+def dft_reduce(field: Field, w_s8, w_sum, x_s8, radix: int, tw=None):
+    """The fused NTT level on int8 byte planes: the size-`radix` DFT as an
+    int8 contraction per base-256 column, the -128 offset corrections, the
+    wide Montgomery reduction and the twiddle in one kernel; the columns
+    never reach device memory.
+
+    w_s8 (4 n16 - 1, S, S * P) int8 and w_sum (4 n16 - 1, S) int32: the
+    folded byte-plane DFT matrix and its row sums (ntt/matmul.py
+    folded_dft_matrix), P = 2 n16; x_s8 (B, C, S * P) int8: the bytes of
+    x[b, j, c] minus 128, depth index j * P + q contiguous; tw as for
+    ntt_level. Returns (B, S, C, n16). CPU: plain version. CUDA: the
+    dft_reduce kernel."""
+    _check_dft_operands(field, w_s8, w_sum, x_s8, radix)
+    bsz, ccols, _ = x_s8.shape
+    _check_level_tw(field, x_s8.device, radix, ccols, tw)
+    if x_s8.device.type == "cpu":
+        return dft_reduce_plain(field, w_s8, w_sum, x_s8, radix, tw)
+    if x_s8.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_s8.device}")
+    if not (w_s8.is_contiguous() and w_sum.is_contiguous() and x_s8.is_contiguous()):
+        raise ValueError("dft_reduce operands must be contiguous")
+    if radix > 128:
+        raise ValueError("dft_reduce takes S <= 128")
+    out = torch.empty((bsz, radix, ccols, field.n16), dtype=torch.int32, device=x_s8.device)
+    if out.numel() == 0:
+        return out
+    code = _kernels().hodor_dft_reduce(
+        field.n16, out.data_ptr(), w_s8.data_ptr(), w_sum.data_ptr(), x_s8.data_ptr(), bsz,
+        radix, ccols, *_level_args(field, radix, tw), _stream(),
+    )
+    _check(code, "dft_reduce")
+    launch_counts["dft_reduce"] += 1
     return out

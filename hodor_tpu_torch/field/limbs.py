@@ -68,14 +68,21 @@ def to_numpy_limbs(t: torch.Tensor) -> np.ndarray:
 
 # --------------------------------------------------------------- LimbOps
 
+NTT_IMPLS = ("level", "two_step", "fused")
+
+
 class LimbOps:
     """Montgomery field ops over (..., n16) int32 limb tensors on one
     device. Constant tables built from the field (DFT matrices,
-    twiddles, domain points) are cached in `tables`."""
+    twiddles, domain points) are cached in `tables`. `ntt_impl` names the
+    form every NTT level of these ops takes (ntt/matmul.py dft_level)."""
 
-    def __init__(self, field: Field, device):
+    def __init__(self, field: Field, device, ntt_impl: str = "level"):
+        if ntt_impl not in NTT_IMPLS:
+            raise ValueError(f"ntt_impl must be one of {NTT_IMPLS}, not {ntt_impl!r}")
         self.field = field
         self.device = torch.device(device)
+        self.ntt_impl = ntt_impl
         n16 = field.n16
         self.n16 = n16
         # the Montgomery reduce needs u = (t + m p)/R < 2p to fit n16

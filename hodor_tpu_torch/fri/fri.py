@@ -6,11 +6,11 @@ The fold recurrence per round i over values v of length K
     next[j] = (v[j] + v[j+K/2] + c * w^{-j*2^i} * (v[j] - v[j+K/2])) / 2
 
 with w the FULL lde-domain generator; each round Merkle-commits `next`
-and derives the next challenge from the root. The fold is the JAX
-package's elementwise form (its fused fold kernel is not ported yet), so
-every round runs on the mont_mul and addsub kernels; the challenge comes
-from each root on the device (digest_to_challenge_mont), since FRI fold
-challenges never touch the transcript.
+and derives the next challenge from the root. Every round folds through
+the fused fri_fold kernel (field/kernels.py), one pass over lo, hi and
+the twiddles; the challenge comes from each root on the device
+(digest_to_challenge_mont) and stays there, since FRI fold challenges
+never touch the transcript.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from ..domain import (
     log2_floor,
 )
 from ..errors import InvalidValueError
+from ..field import kernels
 from ..field.field import Field
 from ..field.limbs import LimbOps
 from ..merkle.blake2s import digest_to_challenge_mont
@@ -77,14 +78,16 @@ class FRIProof:
 def fold_round(ops: LimbOps, values, challenge_limbs, stride: int, log_domain: int):
     """One FRI fold (src/fri/fri_on_values.rs:70-105). values: (K, L);
     challenge_limbs: (L,) Montgomery; the round's twiddles
-    w_j = W^(-j*stride), W the generator of the 2^log_domain l0 domain."""
+    w_j = W^(-j*stride), W the generator of the 2^log_domain l0 domain.
+    The two halves of `values` are read in place, and the fold is the
+    kernel's association mont(mont(lo-hi, w), c/2) + mont(lo+hi, 1/2):
+    the same canonical limbs as (lo+hi + c*w*(lo-hi))/2 in any order."""
     half = values.shape[0] // 2
-    lo, hi = values[:half], values[half:]
     dom = Domain.new_for_size(ops.field, 1 << log_domain)
     w = ops.powers(ops.const(pow(dom.generator_inv, stride, ops.field.p)), half)
-    v_even = ops.add(lo, hi)
-    v_odd = ops.mul(ops.sub(lo, hi), w)
-    return ops.mul(ops.add(v_even, ops.mul(v_odd, challenge_limbs)), ops.two_inv_m)
+    c_scaled = ops.mul(challenge_limbs, ops.two_inv_m)
+    return kernels.fri_fold(ops.field, values[:half], values[half:2 * half], w, c_scaled,
+                            ops.two_inv_m)
 
 
 def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int):

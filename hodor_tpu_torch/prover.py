@@ -47,10 +47,13 @@ class InstanceProof:
 
 class Prover:
     def __init__(self, properties: InstanceProperties, lde_factor: int,
-                 fri_final_degree_plus_one: int, device):
+                 fri_final_degree_plus_one: int, device, ntt_impl: str = "level"):
+        """ntt_impl: the form of every NTT level of the prove, "level",
+        "two_step" or "fused" (ntt/matmul.py); the proof bytes are the
+        same under all three."""
         self.field = properties.field
         self.device = torch.device(device)
-        self.ops = LimbOps(self.field, self.device)
+        self.ops = LimbOps(self.field, self.device, ntt_impl)
         self.arp = ARPInstance.from_instance(properties, self.ops)
         self.ali = ALIInstance(self.arp)
         self.lde_factor = lde_factor

@@ -1,8 +1,8 @@
-"""Device-time breakdown of a warm 2^20-row quadratic-VDF prove on one GPU.
+"""Device-time breakdown of a warm 2^20-row VDF prove on one GPU.
 
-    python -m hodor_tpu_torch.tools.profile_prove
+    python -m hodor_tpu_torch.tools.profile_prove [quadratic|cubic]
 
-Builds the kernels, sets up a prover (lde factor 16, FRI to a constant),
+(the quadratic VDF unless the cubic is named). Builds the kernels, sets up a prover (lde factor 16, FRI to a constant),
 runs one cold prove, then one warm prove without the profiler and one
 under `torch.profiler`. Prints:
   - the card's name and power limit (nvidia-smi);
@@ -34,6 +34,9 @@ GROUPS = (
     ("mont_mul", ("mont_mul_kernel",)),
     ("addsub", ("addsub_kernel",)),
     ("blake2s", ("blake2s_kernel",)),
+    ("fri_fold", ("fri_fold_kernel",)),
+    ("wide_reduce", ("wide_reduce_kernel",)),
+    ("dft_reduce", ("dft_reduce_kernel", "s8dot_kernel")),
     ("torch copy/cat/index", ("copy", "Cat", "cat", "index", "gather", "elementwise",
                               "Memcpy", "Memset", "fill")),
 )
@@ -60,15 +63,20 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def main() -> int:
+def main(argv) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from hodor_tpu_torch.field import F_STARK
     from hodor_tpu_torch.field import kernels as K
-    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.models import VDF, CubicVDF
     from hodor_tpu_torch.prover import Prover
 
+    which = argv[1] if len(argv) > 1 else "quadratic"
+    if which not in ("quadratic", "cubic") or len(argv) > 2:
+        print("usage: python -m hodor_tpu_torch.tools.profile_prove [quadratic|cubic]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
         return 1
@@ -78,7 +86,10 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"device: {smi}")
     K.build_kernels()
-    witness, props = VDF(F_STARK, 1, 2, (1 << LOG_ROWS) - 1).into_arp()
+    steps = (1 << LOG_ROWS) - 1
+    model = VDF(F_STARK, 1, 2, steps) if which == "quadratic" else CubicVDF(F_STARK, 1, 1, steps)
+    witness, props = model.into_arp()
+    print(f"model: {which} VDF, {props.num_registers} registers")
     prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device="cuda")
     prover.prove(witness)
     torch.cuda.synchronize()
@@ -127,4 +138,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

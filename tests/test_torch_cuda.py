@@ -19,7 +19,8 @@ import torch
 from hodor_tpu_torch.field import F257, F_STARK, LimbOps
 from hodor_tpu_torch.field import kernels as K
 from hodor_tpu_torch.merkle.blake2s import keyed_midstate
-from hodor_tpu_torch.ntt.matmul import dft_matrix
+from hodor_tpu_torch.ntt import intt, ntt
+from hodor_tpu_torch.ntt.matmul import dft_matrix, encode_s8, folded_dft_matrix
 
 torch.set_num_threads(1)
 
@@ -93,10 +94,78 @@ def test_ntt_level_kernel(dev, name, size, cols, tw):
     _same(got, K.ntt_level_plain(field, x, w, t))
 
 
-@pytest.mark.parametrize("name", ["fib_f257", "vdf_fstark_t32"])
+@pytest.mark.parametrize("half", [1, 3, 1001])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_fri_fold_kernel(dev, name, half):
+    field = FIELDS[name]
+    values = _canonical(field, (2 * half,), 8)
+    w = _canonical(field, (2 * half,), 9)
+    c, inv2 = _canonical(field, (), 10), _canonical(field, (), 11)
+    vd, wd = values.to(dev), w.to(dev)
+    # the two halves of one tensor, then interleaved (row-strided) views
+    for lo, hi, tw in ((slice(None, half), slice(half, None), slice(None, half)),
+                       (slice(0, None, 2), slice(1, None, 2), slice(1, None, 2))):
+        before = K.launch_counts["fri_fold"]
+        got = K.fri_fold(field, vd[lo], vd[hi], wd[tw], c.to(dev), inv2.to(dev))
+        assert K.launch_counts["fri_fold"] == before + 1
+        _same(got, K.fri_fold_plain(field, values[lo], values[hi], w[tw], c, inv2))
+        _same(vd, values)  # the operands are read, never written
+
+
+LEVEL_CASES = [(2, 3, 5, "table"), (8, 1, 37, "scalar"), (64, 5, 2, None),
+               (128, 7, 3, "table"), (128, 1, 33, "scalar")]
+
+
+def _level_case(field, size, ccols, bsz, tw):
+    """(x, folded W, its sums, twiddle) of one level case, on the CPU."""
+    ops = LimbOps(field, "cpu")
+    x = _canonical(field, (bsz, size, ccols), 12)
+    t = {"table": _canonical(field, (size, ccols), 13), "scalar": _canonical(field, (), 14),
+         None: None}[tw]
+    w_s8, w_sum = folded_dft_matrix(ops, size, False)
+    return ops, x, w_s8, w_sum, t
+
+
+@pytest.mark.parametrize("size,ccols,bsz,tw", LEVEL_CASES)
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_wide_reduce_and_dft_reduce_kernels(dev, name, size, ccols, bsz, tw):
+    field = FIELDS[name]
+    ops, x, w_s8, w_sum, t = _level_case(field, size, ccols, bsz, tw)
+    x_s8 = encode_s8(x).contiguous()
+    cols = K.dft_columns_plain(w_s8, w_sum, x_s8)
+    want = K.ntt_level_plain(field, x, dft_matrix(ops, size, False), t)
+    assert torch.equal(K.wide_reduce_plain(field, cols, size, t), want)
+    td = None if t is None else t.to(dev)
+    _same(K.wide_reduce(field, cols.to(dev), size, td), want)
+    _same(K.dft_reduce(field, w_s8.to(dev), w_sum.to(dev), x_s8.to(dev), size, td), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 512, 128), (37, 50, 45), (1, 3, 1)])
+def test_s8dot_kernel(dev, m, k, n):
+    g = torch.Generator().manual_seed(15)
+    a = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
+    _same(K.s8dot(a.to(dev), b.to(dev)), K.s8dot_plain(a, b))
+    assert torch.equal(K.s8dot_plain(a, b), a.to(torch.int32) @ b.to(torch.int32))
+
+
+@pytest.mark.parametrize("log_n", [1, 7, 10, 15])
+def test_level_forms_agree_on_the_card(dev, log_n):
+    field = F_STARK
+    x = _canonical(field, (3, 1 << log_n), 16).to(dev)
+    outs = []
+    for impl in ("level", "two_step", "fused"):
+        ops = LimbOps(field, dev, impl)
+        outs.append((ntt(ops, x), intt(ops, x)))
+    for fwd, inv in outs[1:]:
+        _same(fwd, outs[0][0])
+        _same(inv, outs[0][1])
+
+
+@pytest.mark.parametrize("name", ["fib_f257", "vdf_fstark_t32", "cubic_vdf_fstark_t32"])
 def test_goldens_on_the_card(dev, name):
     from hodor_tpu_torch import air
-    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.models import VDF, CubicVDF
     from hodor_tpu_torch.proof_io import serialize_proof
     from hodor_tpu_torch.prover import Prover
     from hodor_tpu_torch.verifier import Verifier
@@ -108,9 +177,12 @@ def test_goldens_on_the_card(dev, name):
         fib.trace(tracer)
         tracer.calculate_witness(1, 1, 3)
         witness, props = tracer.into_arp()
-    else:
+    elif name == "vdf_fstark_t32":
         field = F_STARK
         witness, props = VDF(field, 1, 2, 31).into_arp()
+    else:
+        field = F_STARK
+        witness, props = CubicVDF(field, 1, 1, 31).into_arp()
     prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev)
     proof = prover.prove(witness)
     assert Verifier(props, lde_factor=16).verify(proof)

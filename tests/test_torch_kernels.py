@@ -1,5 +1,6 @@
-"""The plain versions of the port's four kernels (hodor_tpu_torch.field.
-kernels, what a CPU tensor runs) against the JAX package's Pallas kernels
+"""The plain versions of the port's first four kernels (hodor_tpu_torch.
+field.kernels, what a CPU tensor runs; the other three are held in
+test_torch_fold.py and test_torch_ntt_impls.py) against the JAX package's Pallas kernels
 in interpret mode, as tests/test_pallas.py runs them, and the launch
 geometry the CUDA wrappers hand their kernels.
 

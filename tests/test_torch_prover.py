@@ -1,5 +1,6 @@
 """The whole port on CPU tensors against the golden vectors: the port
-reproduces tests/golden/fib_f257 and vdf_fstark_t32 byte for byte with
+reproduces tests/golden/fib_f257, vdf_fstark_t32 and cubic_vdf_fstark_t32
+byte for byte with
 the same Fiat-Shamir challenge log, hodor_tpu's verifier accepts the
 port's proofs, the port's verifier accepts the golden bytes, and both
 reject tampered proofs. Also the port's FRI layer on its own."""
@@ -15,14 +16,14 @@ import torch
 import hodor_tpu.proof_io as jproof_io
 import hodor_tpu.air as jair
 from hodor_tpu.field import F257 as JF257, F_STARK as JF_STARK
-from hodor_tpu.models import VDF as JVDF
+from hodor_tpu.models import CubicVDF as JCubicVDF, VDF as JVDF
 from hodor_tpu.verifier import Verifier as JVerifier
 import hodor_tpu_torch.air as tair
 from hodor_tpu_torch.arp import ARPInstance
 from hodor_tpu_torch.errors import UnsatisfiedError
 from hodor_tpu_torch.field import F257, F_STARK, LimbOps
 from hodor_tpu_torch.fri import NaiveFriIop
-from hodor_tpu_torch.models import VDF
+from hodor_tpu_torch.models import VDF, CubicVDF
 from hodor_tpu_torch.ntt import lde
 from hodor_tpu_torch.proof_io import deserialize_proof, serialize_proof
 from hodor_tpu_torch.prover import Prover
@@ -31,7 +32,7 @@ from hodor_tpu_torch.verifier import Verifier
 torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-NAMES = ["fib_f257", "vdf_fstark_t32"]
+NAMES = ["fib_f257", "vdf_fstark_t32", "cubic_vdf_fstark_t32"]
 
 
 def _fib(air, field):
@@ -48,6 +49,10 @@ def _instance(name):
         w, props = _fib(tair, F257)
         _, jprops = _fib(jair, JF257)
         return w, props, F257, jprops, JF257
+    if name == "cubic_vdf_fstark_t32":
+        w, props = CubicVDF(F_STARK, 1, 1, 31).into_arp()
+        _, jprops = JCubicVDF(JF_STARK, 1, 1, 31).into_arp()
+        return w, props, F_STARK, jprops, JF_STARK
     w, props = VDF(F_STARK, 1, 2, 31).into_arp()
     _, jprops = JVDF(JF_STARK, 1, 2, 31).into_arp()
     return w, props, F_STARK, jprops, JF_STARK
