@@ -9,9 +9,12 @@ Phases, each reported on its own line:
   2. build: compiles the CUDA kernels from hodor_tpu_torch/csrc into
      build/ (one nvcc per source, all at once) and prints the seconds;
   3. kernels: each of the seven kernels (and s8dot, the contraction of
-     dft_reduce alone) against its plain PyTorch version on the card, on
-     seeded random canonical inputs at the shapes the prove gives it;
-     outputs must be bit-equal (tolerance 0: every output is canonical);
+     dft_reduce alone, and mont_pow, the static power in mont_mul.cu)
+     against its plain PyTorch version on the card, on seeded random
+     canonical inputs at the shapes the prove gives it; ntt_level in both
+     of its bodies (the tensor-core one and the limb one) on the same
+     inputs, timed in turn; outputs must be bit-equal (tolerance 0: every
+     output is canonical);
      kernel and plain times from CUDA events after a warm-up, beside the
      least time the card could take (bytes over 3.35 TB/s or operations
      over the peak of their type, whichever is larger) and, where one
@@ -29,7 +32,9 @@ Phases, each reported on its own line:
   7. the quadratic VDF at 2^16 rows under each level form: the three
      serialized proofs must be equal and each must verify.
 Every path of phases 5-7 zeroes the launch counts just before it runs
-and reads them just after, and names the kernels it must have launched.
+and reads them just after, names the kernels it must have launched and
+prints the launches of each ntt_level body; the 2^20-row paths must have
+run the tensor-core body.
 
 The line before the last holds the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -54,6 +59,10 @@ LOG_ROWS_LEVEL_FORMS = 16
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "int32": 67e12 / 4}
 
+# name -> (source, the TPU kernel it replaces). mont_mul.cu has two
+# entries, hodor_mont_mul and hodor_mont_pow (x^e in one launch, counted
+# with mont_mul); ntt_level.cu has two bodies, "mma" (the contraction of
+# csrc/byte_plane_mma.cuh on the int8 tensor cores) and "limb".
 KERNEL_INFO = {
     "mont_mul": ("hodor_tpu_torch/csrc/mont_mul.cu", "hodor_tpu/field/pallas_kernels.py:283"),
     "addsub": ("hodor_tpu_torch/csrc/addsub.cu", "hodor_tpu/field/pallas_kernels.py:878"),
@@ -71,8 +80,7 @@ MAIN_PATH_KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level", "fri_fold")
 # Least 32-bit integer operations per element at n16 = 16 (8 words),
 # counted from the sources: a Montgomery product is 2 * 8 * 8 multiply-adds
 # and a compare-subtract; a modular add or sub two 8-word carry chains and a
-# select; a Blake2s block 10 rounds of 8 G at 14 operations; a level
-# output S products of 8 x 8 multiply-adds, one 8 x 8 reduction, the chain.
+# select; a Blake2s block 10 rounds of 8 G at 14 operations.
 OPS_MONT_MUL = 2 * 8 * 8 + 3 * 8
 OPS_ADDSUB = 3 * 8
 OPS_BLAKE2S = 10 * 8 * 14 + 40
@@ -80,8 +88,12 @@ OPS_FRI_FOLD = 3 * OPS_MONT_MUL + 3 * OPS_ADDSUB
 OPS_WIDE_REDUCE = 4 * 63 + 8 * 8 + 3 * 3 * 8
 
 
-def ops_ntt_level(size: int, twiddle: bool) -> int:
-    return size * 8 * 8 + 8 * 8 + 3 * 3 * 8 + (OPS_MONT_MUL if twiddle else 0)
+def ops_ntt_level(size: int) -> int:
+    """int8 operations of one level output on the tensor cores: P x P byte
+    products of depth S, a multiply-add two operations, P = 32 byte planes.
+    The yardstick of both bodies: the card's least time for the function
+    is the tensor cores' whichever body runs."""
+    return 2 * size * 32 * 32
 
 
 def nbytes(*tensors) -> int:
@@ -138,22 +150,27 @@ def phase_kernels(dev):
     records = {name: {"max_abs_err": 0, "cases": []} for name in K.KERNELS}
 
     def compare(name, case, kernel_fn, plain_fn, moved, n_ops, op_kind="int32", library_fn=None,
-                reps=20, plain_reps=3):
+                reps=20, plain_reps=3, other_bodies=None):
         """moved: bytes the function must move (inputs once, outputs once);
-        n_ops: its operations of kind op_kind on these inputs."""
-        got = kernel_fn()
+        n_ops: its operations of kind op_kind on these inputs.
+        other_bodies: {label: fn} of the kernel's other bodies, held to the
+        same plain result and timed in the same turn."""
+        other_bodies = other_bodies or {}
         want = plain_fn()
-        torch.cuda.synchronize()
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"{name}/{case}: shape/dtype {got.shape} {got.dtype} "
-                                 f"vs {want.shape} {want.dtype}")
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
-        if err != 0:
-            raise AssertionError(f"{name}/{case}: kernel differs from plain version, "
-                                 f"max abs limb error {err}")
+        for label, fn in [("", kernel_fn)] + list(other_bodies.items()):
+            got = fn()
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name}/{case} {label}: shape/dtype {got.shape} "
+                                     f"{got.dtype} vs {want.shape} {want.dtype}")
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+            if err != 0:
+                raise AssertionError(f"{name}/{case} {label}: kernel differs from plain "
+                                     f"version, max abs limb error {err}")
         moved += nbytes(got)
         del got, want
         ms = cuda_time_ms(kernel_fn, reps)
+        other_ms = {label: cuda_time_ms(fn, reps) for label, fn in other_bodies.items()}
         plain_ms = cuda_time_ms(plain_fn, plain_reps)
         library_ms = None if library_fn is None else cuda_time_ms(library_fn, reps)
         by_bytes = 1e3 * moved / PEAK_BYTES_PER_S
@@ -163,9 +180,10 @@ def phase_kernels(dev):
         rec["cases"].append({
             "case": case, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": library_ms})
+            "library_ms": library_ms, **{f"{label}_body_ms": t for label, t in other_ms.items()}})
         log(f"kernel {name:11s} {case:36s} bit-equal  kernel {ms:9.3f} ms  plain {plain_ms:10.3f} ms"
             f"  bound {max(by_bytes, by_ops):7.3f} ms ({rec['cases'][-1]['bound_by']})"
+            + "".join(f"  {label} body {t:7.3f} ms" for label, t in other_ms.items())
             + ("" if library_ms is None else f"  library {library_ms:7.3f} ms"))
 
     a = random_canonical(field, (n,), gen, dev)
@@ -177,6 +195,38 @@ def phase_kernels(dev):
     compare("mont_mul", "2^20 x scalar (stride 0)",
             lambda: K.mont_mul(field, a, s), lambda: K.mont_mul_plain(field, a, s),
             nbytes(a, s), n * OPS_MONT_MUL)
+    # a view offset by one element (the flat body at another base), and a
+    # transposed operand that collapses to no flat or grid form (general)
+    compare("mont_mul", "2^20 - 1, views offset by one",
+            lambda: K.mont_mul(field, a[1:], b[:-1]),
+            lambda: K.mont_mul_plain(field, a[1:], b[:-1]),
+            nbytes(a[1:], b[:-1]), (n - 1) * OPS_MONT_MUL)
+    at, bt = a.reshape(16, 1 << 16, 16).transpose(0, 1), b.reshape(1 << 16, 16, 16)
+    compare("mont_mul", "(2^16,16) transposed view (general)",
+            lambda: K.mont_mul(field, at, bt), lambda: K.mont_mul_plain(field, at, bt),
+            nbytes(at, bt), n * OPS_MONT_MUL)
+    # the static power in one launch: e = p - 2 (Fermat inverse) on 1, 7
+    # and 2^16 elements, against the loop of plain products and x * x^e = 1
+    e_inv = field.p - 2
+    pow_muls = e_inv.bit_length() - 1 + bin(e_inv).count("1") - 1
+    for count in (1, 7, 1 << 16):
+        xp = a[:count]
+        before = K.launch_counts["mont_mul"]
+        inv = K.mont_pow(field, xp, e_inv)
+        if K.launch_counts["mont_mul"] != before + 1:
+            raise AssertionError("mont_pow must be one launch")
+        if not torch.equal(K.mont_mul(field, inv, xp), ops.one_m.expand(count, field.n16)):
+            raise AssertionError(f"mont_pow: x * x^(p-2) != 1 on {count} elements")
+        compare("mont_mul", f"mont_pow e=p-2 on {count} elements",
+                lambda: K.mont_pow(field, xp, e_inv), lambda: K.mont_pow_plain(field, xp, e_inv),
+                nbytes(xp), count * pow_muls * OPS_MONT_MUL, reps=5, plain_reps=1)
+    before = K.launch_counts["mont_mul"]
+    if not torch.equal(ops.inv_fermat(s), K.mont_pow_plain(field, s, e_inv)):
+        raise AssertionError("inv_fermat differs from its plain version")
+    log(f"LimbOps.inv_fermat of one element: {K.launch_counts['mont_mul'] - before} launch "
+        f"({pow_muls} products inside it)")
+    if K.launch_counts["mont_mul"] != before + 1:
+        raise AssertionError("inv_fermat must be one launch")
     for mode in ("add", "sub"):
         compare("addsub", f"{mode} 2^20 x 16 limbs",
                 lambda: K.addsub(field, a, b, mode), lambda: K.addsub_plain(field, a, b, mode),
@@ -210,40 +260,47 @@ def phase_kernels(dev):
     # level with the scalar 1/N, and the small radices
     x = random_canonical(field, (64, 128, 128), gen, dev)
     tw = random_canonical(field, (128, 128), gen, dev)
-    w128 = M.dft_matrix(ops, 128, False)
-    compare("ntt_level", "S=128 C=128 B=64 no twiddle",
-            lambda: K.ntt_level(field, x, w128), lambda: K.ntt_level_plain(field, x, w128),
-            nbytes(x, w128), n * ops_ntt_level(128, False), reps=5, plain_reps=1)
-    compare("ntt_level", "S=128 C=128 B=64 twiddle table",
-            lambda: K.ntt_level(field, x, w128, tw),
-            lambda: K.ntt_level_plain(field, x, w128, tw),
-            nbytes(x, w128, tw), n * ops_ntt_level(128, True), reps=5, plain_reps=1)
+
+    def level_case(case, xv, size, inverse, t, reps=5):
+        """One level shape: the body the wrapper picks against the plain
+        version, and where that is the tensor-core body the limb body too."""
+        w = M.dft_matrix(ops, size, inverse)
+        body = K.ntt_level_body(field, size)
+        planes = M.dft_matrix_planes(ops, size, inverse) if body == "mma" else None
+        others = {"limb": lambda: K.ntt_level(field, xv, w, t, body="limb")} if body == "mma" \
+            else {}
+        before = dict(K.ntt_level_body_counts)
+        compare("ntt_level", f"{case} [{body}]",
+                lambda: K.ntt_level(field, xv, w, t, w_planes=planes),
+                lambda: K.ntt_level_plain(field, xv, w, t),
+                nbytes(xv, planes if planes is not None else w, t),
+                xv.numel() // field.n16 * ops_ntt_level(size), "int8", reps=reps, plain_reps=1,
+                other_bodies=others)
+        if K.ntt_level_body_counts[body] == before[body]:
+            raise AssertionError(f"ntt_level {case}: the {body} body did not launch")
+
+    level_case("S=128 C=128 B=64 no twiddle", x, 128, False, None)
+    level_case("S=128 C=128 B=64 twiddle table", x, 128, False, tw)
     # the first four-step level of a 2^20-point NTT (f-LDE, B = R x factor
     # of them) and of a 2^21-point one (g-LDE), with their own twiddle tables
     for log_n, bsz in ((20, 2), (21, 1)):
         cols = (1 << log_n) // 128
         xw = random_canonical(field, (bsz, 128, cols), gen, dev)
-        tww = M.level_twiddles(ops, 1 << log_n, 128, False)
-        compare("ntt_level", f"S=128 C={cols} B={bsz} 2^{log_n} twiddles",
-                lambda: K.ntt_level(field, xw, w128, tww),
-                lambda: K.ntt_level_plain(field, xw, w128, tww),
-                nbytes(xw, w128, tww), xw.numel() // 16 * ops_ntt_level(128, True),
-                reps=5, plain_reps=1)
-    del xw, tww
-    xt = x.reshape(n // 128, 128, 1, field.n16)
+        level_case(f"S=128 C={cols} B={bsz} 2^{log_n} twiddles", xw, 128, False,
+                   M.level_twiddles(ops, 1 << log_n, 128, False))
+    del xw
     ninv = ops.const(field.inv(1 << 20))
-    w128i = M.dft_matrix(ops, 128, True)
-    compare("ntt_level", "S=128 C=1 scalar 1/N (inverse)",
-            lambda: K.ntt_level(field, xt, w128i, ninv),
-            lambda: K.ntt_level_plain(field, xt, w128i, ninv),
-            nbytes(xt, w128i, ninv), n * ops_ntt_level(128, True), reps=5, plain_reps=1)
-    for size in (64, 8):
-        xs = x.reshape(n // size, size, 1, field.n16)
-        ws = M.dft_matrix(ops, size, False)
-        compare("ntt_level", f"S={size} C=1 B=2^20/{size}",
-                lambda: K.ntt_level(field, xs, ws), lambda: K.ntt_level_plain(field, xs, ws),
-                nbytes(xs, ws), n * ops_ntt_level(size, False), reps=5, plain_reps=1)
-    del xs, xt
+    level_case("S=128 C=1 scalar 1/N (inverse)", x.reshape(n // 128, 128, 1, field.n16), 128,
+               True, ninv)
+    for size in (64, 32, 16, 8):
+        level_case(f"S={size} C=1 B=2^20/{size}", x.reshape(n // size, size, 1, field.n16),
+                   size, False, None)
+    # ragged edges of the tensor-core body's tile: C no multiple of 16 with
+    # a batch boundary inside a tile, and a single column
+    level_case("S=128 C=20 B=3 twiddle table", x[:3, :, :20].contiguous(), 128, False,
+               tw[:, :20].contiguous(), reps=20)
+    level_case("S=128 C=1 B=1", x[:1, :, :1].contiguous(), 128, False, None, reps=20)
+    level_case("S=32 C=5 B=7 scalar", x[:7, :32, :5].contiguous(), 32, False, ninv, reps=20)
 
     # the FRI fold at the first rounds of the h1 and h2 ladders of a
     # 2^20-row prove (2^24 and 2^25 values), lo and hi the two halves of
@@ -392,10 +449,15 @@ def phase_at_size(dev, label: str, model):
         raise AssertionError(f"{label}: the verifier rejects the 2^{LOG_ROWS}-row proof")
     verify_s = time.perf_counter() - t0
     counts = dict(K.launch_counts)
+    bodies = dict(K.ntt_level_body_counts)
     peak_cold = torch.cuda.max_memory_allocated()
     log(f"{label}: cold prove {cold:.3f} s (stage walls: {prover.last_timings.to_json()})")
     log(f"{label}: verify {verify_s:.3f} s -> accepted")
     log(f"{label}: launches in set-up + cold prove + verify: {json.dumps(counts)}")
+    log(f"{label}: ntt_level launches by body: {json.dumps(bodies)}")
+    if bodies["mma"] == 0 or bodies["mma"] + bodies["limb"] != counts["ntt_level"]:
+        raise AssertionError(f"{label}: the 2^{LOG_ROWS}-row path must run the tensor-core "
+                             f"body of ntt_level, got {bodies} of {counts['ntt_level']}")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -412,7 +474,7 @@ def phase_at_size(dev, label: str, model):
         raise AssertionError(f"{label}: the verifier accepts a tampered f_at_z_m[0]")
     log(f"{label}: warm proof accepted; tampered f_at_z_m[0] rejected")
     require_launched(label, counts, MAIN_PATH_KERNELS)
-    return counts
+    return counts, bodies
 
 
 def phase_level_forms(dev):
@@ -440,13 +502,15 @@ def phase_level_forms(dev):
         proof = prover.prove(witness)
         wall = time.perf_counter() - t0
         counts[impl] = dict(K.launch_counts)
+        bodies = dict(K.ntt_level_body_counts)
         if not verifier.verify(proof):
             raise AssertionError(f"level form {impl!r}: the verifier rejects the proof")
         proofs[impl] = serialize_proof(proof, F_STARK)
         label = f"level forms: 2^{LOG_ROWS_LEVEL_FORMS} rows under {impl!r}"
         log(f"{label}: set-up + prove {wall:.3f} s, verified "
             f"(stage walls: {prover.last_timings.to_json()})")
-        log(f"{label}: launches {json.dumps(counts[impl])}")
+        log(f"{label}: launches {json.dumps(counts[impl])}, ntt_level by body "
+            f"{json.dumps(bodies)}")
         require_launched(label, counts[impl], must[impl] + ("mont_mul", "addsub", "blake2s",
                                                             "fri_fold"))
         others = [k for kk, v in must.items() if kk != impl for k in v]
@@ -486,13 +550,12 @@ def main() -> int:
     records = phase_kernels(dev)
     phase_goldens(dev)
     rows = (1 << LOG_ROWS) - 1
-    paths = {"quadratic VDF 2^20 (main path)":
-             phase_at_size(dev, "main path, quadratic VDF", VDF(F_STARK, 1, 2, rows))}
-    main_counts = paths["quadratic VDF 2^20 (main path)"]
-    log(f"main path: with the fold in one fri_fold launch a round ({main_counts['fri_fold']} "
-        f"launches), mont_mul {main_counts['mont_mul']} and addsub {main_counts['addsub']} "
-        "launches; with the fold on separate add, sub and mul launches they were 5693 and 193")
-    paths["cubic VDF 2^20"] = phase_at_size(dev, "cubic VDF", CubicVDF(F_STARK, 1, 1, rows))
+    main_counts, main_bodies = phase_at_size(dev, "main path, quadratic VDF",
+                                             VDF(F_STARK, 1, 2, rows))
+    paths = {"quadratic VDF 2^20 (main path)": main_counts}
+    log(f"main path: mont_mul launches of set-up + cold prove + verify {main_counts['mont_mul']} "
+        "(a static power, inv_fermat among them, is one launch)")
+    paths["cubic VDF 2^20"], _ = phase_at_size(dev, "cubic VDF", CubicVDF(F_STARK, 1, 1, rows))
     for impl, counts in phase_level_forms(dev).items():
         paths[f"quadratic VDF 2^{LOG_ROWS_LEVEL_FORMS}, level form {impl}"] = counts
     never = [k for k in K.KERNELS if not any(c[k] for c in paths.values())]
@@ -516,6 +579,11 @@ def main() -> int:
             "cases": rec["cases"],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
         })
+        if name == "ntt_level":
+            kernels[-1]["launches_by_body"] = main_bodies
+            kernels[-1]["contraction"] = "hodor_tpu_torch/csrc/byte_plane_mma.cuh"
+        if name == "mont_mul":
+            kernels[-1]["entries"] = ["hodor_mont_mul", "hodor_mont_pow"]
     log(f"device: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@
 // Bound on the H100: device-memory bytes (about 20 integer instructions
 // for 192 bytes moved).
 // Design: one thread per element, words in registers, one read of each
-// operand and one write; broadcast operands by stride 0, as in
-// mont_mul.cu.
+// operand and one write, all through 16-byte accesses; broadcast operands
+// by stride 0 over three dims (mont_mul.cu's general body).
 #include "field.cuh"
 
 namespace hodor {
@@ -21,13 +21,13 @@ __global__ void addsub_kernel(int32_t* __restrict__ out, const int32_t* __restri
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   uint32_t x[NW], y[NW], r[NW];
-  load_words<NW>(element_at(a, as, dims, i), x);
-  load_words<NW>(element_at(b, bs, dims, i), y);
+  load_words_v4<NW>(element_at(a, as, dims, i), x);
+  load_words_v4<NW>(element_at(b, bs, dims, i), y);
   if (mode == 0)
     mod_add<NW>(r, x, y, fc);
   else
     mod_sub<NW>(r, x, y, fc);
-  store_words<NW>(out + i * N16, r);
+  store_words_v4<NW>(out + i * N16, r);
 }
 
 template <int N16>

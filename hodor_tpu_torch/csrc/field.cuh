@@ -56,24 +56,10 @@ struct Dims3 {
   long long d[3];
 };
 
-template <int NW>
-__device__ __forceinline__ void load_words(const int32_t* limbs, uint32_t (&w)[NW]) {
-#pragma unroll
-  for (int i = 0; i < NW; ++i)
-    w[i] = (uint32_t)limbs[2 * i] | ((uint32_t)limbs[2 * i + 1] << 16);
-}
-
-template <int NW>
-__device__ __forceinline__ void store_words(int32_t* limbs, const uint32_t (&w)[NW]) {
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    limbs[2 * i] = (int32_t)(w[i] & 0xFFFFu);
-    limbs[2 * i + 1] = (int32_t)(w[i] >> 16);
-  }
-}
-
-// The same through 16-byte loads and stores; limbs must be 16-byte
-// aligned (every element of a limb tensor is: n16 is a multiple of 4).
+// An element's limbs <-> its packed words through 16-byte loads and
+// stores; limbs must be 16-byte aligned (every element of a limb tensor
+// is: n16 is a multiple of 4, and the wrappers check the base pointer and
+// the strides).
 template <int NW>
 __device__ __forceinline__ void load_words_v4(const int32_t* limbs, uint32_t (&w)[NW]) {
   const int4* v = reinterpret_cast<const int4*>(limbs);

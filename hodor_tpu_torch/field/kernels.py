@@ -14,7 +14,14 @@ Seven kernels, one per TPU kernel of the JAX package
 
 `s8dot` is dft_reduce's int8 contraction exported alone (the counterpart
 of the bare int8 product probed by scripts/tpu_qualify.py check_s8dot);
-its launches count as dft_reduce's.
+its launches count as dft_reduce's. `mont_pow` is a second entry of
+mont_mul.cu: x^e for a static exponent in one launch (the one-program
+exponent loop of hodor_tpu/field/limbs.py inv_fermat); its launches count
+as mont_mul's. `ntt_level` has two bodies in ntt_level.cu, the byte-plane
+contraction on the int8 tensor cores ("mma", csrc/byte_plane_mma.cuh) and
+the limb arithmetic on the integer pipe ("limb"); the wrapper picks one
+from the field and the radix (`ntt_level_body`), and
+`ntt_level_body_counts` counts each beside their sum in `launch_counts`.
 
 Every wrapper dispatches on the device of its tensors and nothing else:
 a CPU tensor takes the plain version beside it (int64 torch ops, the
@@ -53,11 +60,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level", "fri_fold", "wide_reduce",
            "dft_reduce")
 launch_counts = {name: 0 for name in KERNELS}
+NTT_LEVEL_BODIES = ("mma", "limb")
+ntt_level_body_counts = {body: 0 for body in NTT_LEVEL_BODIES}
 
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launch_counts[name] = 0
+    for body in NTT_LEVEL_BODIES:
+        ntt_level_body_counts[body] = 0
 
 
 # ------------------------------------------------------------------ build
@@ -129,16 +140,19 @@ def build_kernels(verbose: bool = False) -> str:
 def _bind(lib):
     vp, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
     lib.hodor_mont_mul.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, u32, vp]
+    lib.hodor_mont_pow.argtypes = [i32, vp, vp, i64, vp, i32, vp, vp, u32, vp]
     lib.hodor_addsub.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.hodor_blake2s.argtypes = [vp, vp, i64, i32, vp, u32, vp]
     lib.hodor_ntt_level.argtypes = [i32, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
+    lib.hodor_ntt_level_mma.argtypes = lib.hodor_ntt_level.argtypes
     lib.hodor_fri_fold.argtypes = [i32, vp, vp, i64, vp, i64, vp, i64, vp, vp, i64, vp, u32, vp]
     lib.hodor_wide_reduce.argtypes = [i32, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
     lib.hodor_dft_reduce.argtypes = [i32, vp, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp,
                                      i32, vp]
     lib.hodor_s8dot.argtypes = [vp, vp, vp, i32, i32, i32, vp]
-    for fn in (lib.hodor_mont_mul, lib.hodor_addsub, lib.hodor_blake2s, lib.hodor_ntt_level,
-               lib.hodor_fri_fold, lib.hodor_wide_reduce, lib.hodor_dft_reduce, lib.hodor_s8dot):
+    for fn in (lib.hodor_mont_mul, lib.hodor_mont_pow, lib.hodor_addsub, lib.hodor_blake2s,
+               lib.hodor_ntt_level, lib.hodor_ntt_level_mma, lib.hodor_fri_fold,
+               lib.hodor_wide_reduce, lib.hodor_dft_reduce, lib.hodor_s8dot):
         fn.restype = ctypes.c_int
     return lib
 
@@ -180,6 +194,14 @@ def _words(value: int, nw: int):
 def _pinv0(field: Field) -> int:
     """-p^-1 mod 2^32, the word-serial Montgomery constant of the kernels."""
     return (-pow(field.p, -1, 1 << 32)) % (1 << 32)
+
+
+@lru_cache(maxsize=None)
+def _field_args(field: Field):
+    """What every launch of a field's kernels passes and no launch changes:
+    (p as ctypes words, -p^-1 mod 2^32, the Montgomery one as ctypes words)."""
+    nw = field.n16 // 2
+    return (_u32_array(_words(field.p, nw)), _pinv0(field), _u32_array(_words(field.R_mod_p, nw)))
 
 
 @lru_cache(maxsize=None)
@@ -325,19 +347,38 @@ def _launch_geometry(a, b, out_shape):
     """(a, b, dims[3], a_strides[3], b_strides[3]) in int32 units for an
     elementwise kernel over the element dims of out_shape; broadcast dims
     get stride 0. An operand layout that does not collapse to three dims
-    is copied to a contiguous broadcast first."""
+    is copied to a contiguous broadcast first. The kernels read an element
+    through 16-byte loads: a base pointer or a stride that is not a
+    multiple of 16 bytes is refused."""
     elem_shape = tuple(out_shape[:-1])
-    for _ in range(2):
-        ops_ = [t.expand(out_shape) for t in (a, b)]
-        if any(t.stride(-1) != 1 for t in ops_):
+
+    def merged_dims(x, y):
+        views = [t.expand(out_shape) for t in (x, y)]
+        if any(t.stride(-1) != 1 for t in views):
             raise ValueError("limb dim must have stride 1")
-        merged = _collapse(elem_shape, [t.stride()[:-1] for t in ops_])
-        if len(merged) <= 3:
-            merged = [(1, [0, 0])] * (3 - len(merged)) + merged
-            dims = [m[0] for m in merged]
-            return (a, b, dims, [m[1][0] for m in merged], [m[1][1] for m in merged])
-        a, b = (t.expand(out_shape).contiguous() for t in (a, b))
-    raise AssertionError("unreachable")
+        return _collapse(elem_shape, [t.stride()[:-1] for t in views])
+
+    if elem_shape and all(
+            t.shape == out_shape and t.is_contiguous() or (t.dim() == 1 and t.stride(0) == 1)
+            for t in (a, b)):
+        # both operands of the output's shape and contiguous, or one the
+        # (n16,) scalar: one flat dim, no collapse to work out
+        n = 1
+        for size in elem_shape:
+            n *= size
+        merged = [(n, [0 if t.dim() == 1 else out_shape[-1] for t in (a, b)])]
+    else:
+        merged = merged_dims(a, b)
+        if len(merged) > 3:
+            a, b = (t.expand(out_shape).contiguous() for t in (a, b))
+            merged = merged_dims(a, b)
+    merged = [(1, [0, 0])] * (3 - len(merged)) + merged
+    dims = [m[0] for m in merged]
+    a_st, b_st = ([m[1][k] for m in merged] for k in (0, 1))
+    for t, st in ((a, a_st), (b, b_st)):
+        if t.data_ptr() % 16 or any(v % 4 for v in st):
+            raise ValueError("limb elements must lie at 16-byte aligned addresses")
+    return a, b, dims, a_st, b_st
 
 
 def _out_tensor(out, shape, like):
@@ -365,14 +406,52 @@ def mont_mul(field: Field, a, b, out=None):
     if out.numel() == 0:
         return out
     a, b, dims, a_st, b_st = _launch_geometry(a, b, shape)
-    lib = _kernels()
-    n = field.n16
-    code = lib.hodor_mont_mul(
-        n, out.data_ptr(), a.data_ptr(), _i64_array(a_st), b.data_ptr(), _i64_array(b_st),
-        _i64_array(dims), _u32_array(_words(field.p, n // 2)),
-        _pinv0(field), _stream(),
+    p_words, pinv0, _ = _field_args(field)
+    code = _kernels().hodor_mont_mul(
+        field.n16, out.data_ptr(), a.data_ptr(), _i64_array(a_st), b.data_ptr(),
+        _i64_array(b_st), _i64_array(dims), p_words, pinv0, _stream(),
     )
     _check(code, "mont_mul")
+    launch_counts["mont_mul"] += 1
+    return out
+
+
+def mont_pow_plain(field: Field, x, e: int):
+    """x^e by MSB-first square-and-multiply on the plain product, from
+    the Montgomery one (the result for e = 0)."""
+    acc = torch.as_tensor(_int_limbs(field.R_mod_p, field.n16), device=x.device)
+    acc = acc.to(torch.int32).expand(x.shape)
+    for i in reversed(range(e.bit_length())):
+        acc = mont_mul_plain(field, acc, acc)
+        if (e >> i) & 1:
+            acc = mont_mul_plain(field, acc, x)
+    return acc.contiguous()
+
+
+def mont_pow(field: Field, x, e: int):
+    """Elementwise x^e (Montgomery form in and out) of contiguous (..., n16)
+    limbs for a static exponent 0 <= e < 2^(16 n16), in one launch whatever
+    e is. CPU: plain version. CUDA: the mont_pow entry of the mont_mul
+    kernel; its launches count as mont_mul's."""
+    _check_limbs(field, x)
+    if e < 0 or e.bit_length() > 16 * field.n16:
+        raise ValueError(f"exponent must be in [0, 2^{16 * field.n16}), got {e}")
+    if x.device.type == "cpu":
+        return mont_pow_plain(field, x, e)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("mont_pow takes contiguous limbs at a 16-byte aligned address")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    p_words, pinv0, one_words = _field_args(field)
+    code = _kernels().hodor_mont_pow(
+        field.n16, out.data_ptr(), x.data_ptr(), x.numel() // field.n16,
+        _u32_array(_words(e, field.n16 // 2)), e.bit_length(), one_words, p_words, pinv0,
+        _stream(),
+    )
+    _check(code, "mont_pow")
     launch_counts["mont_mul"] += 1
     return out
 
@@ -396,12 +475,9 @@ def addsub(field: Field, a, b, mode: str, out=None):
     if out.numel() == 0:
         return out
     a, b, dims, a_st, b_st = _launch_geometry(a, b, shape)
-    lib = _kernels()
-    n = field.n16
-    code = lib.hodor_addsub(
-        n, 0 if mode == "add" else 1, out.data_ptr(), a.data_ptr(), _i64_array(a_st),
-        b.data_ptr(), _i64_array(b_st), _i64_array(dims),
-        _u32_array(_words(field.p, n // 2)), _stream(),
+    code = _kernels().hodor_addsub(
+        field.n16, 0 if mode == "add" else 1, out.data_ptr(), a.data_ptr(), _i64_array(a_st),
+        b.data_ptr(), _i64_array(b_st), _i64_array(dims), _field_args(field)[0], _stream(),
     )
     _check(code, "addsub")
     launch_counts["addsub"] += 1
@@ -540,6 +616,52 @@ def ntt_level_plain(field: Field, x, w, tw=None):
     return u
 
 
+def byte_planes(limbs):
+    """(..., n16) 16-bit limbs -> (..., 2 n16) uint8: the element's bytes,
+    little-endian (plane 2 i the low byte of limb i, plane 2 i + 1 the high)."""
+    return torch.stack([limbs & 0xFF, limbs >> 8], dim=-1).reshape(
+        limbs.shape[:-1] + (2 * limbs.shape[-1],)).to(torch.uint8)
+
+
+def dft_byte_planes(w):
+    """The (S, S, n16) limb DFT matrix as the (P, S, S) uint8 byte-plane
+    matrix the tensor-core body of ntt_level reads: plane q, row k, depth j
+    holds byte q of W[k, j]; P = 2 n16."""
+    return byte_planes(w).permute(2, 0, 1).contiguous()
+
+
+def ntt_level_planes_plain(field: Field, x, w_planes, tw=None):
+    """The arithmetic of ntt_level's tensor-core body in torch ops: x
+    (B, S, C, n16) split into P = 2 n16 byte planes, base-256 column c of
+    the exact sums as the byte dots sum_{qi + qj = c} Wb[qi] . xb[qj]
+    (float64 products of bytes, exact: a column stays below 2^28), the
+    2 P - 1 columns walked in order with a running carry that gives one
+    byte of t a column, then the Montgomery reduction, the chain and the
+    twiddle as in ntt_level_plain."""
+    n = field.n16
+    planes = 2 * n
+    size = x.shape[1]
+    xf = byte_planes(x).permute(3, 0, 1, 2).to(torch.float64)  # (P, B, S, C)
+    wf = w_planes.to(torch.float64)  # (P, S, S)
+    run = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
+    t_bytes = []
+    for c in range(2 * planes - 1):
+        col = torch.zeros(x.shape[:-1], dtype=torch.float64, device=x.device)
+        for qi in range(max(0, c - planes + 1), min(c, planes - 1) + 1):
+            col += torch.matmul(wf[qi], xf[c - qi])
+        run = run + col.to(torch.int64)
+        t_bytes.append(run & 0xFF)
+        run = run >> 8
+    t_bytes.append(run)  # the top byte: t < S p^2 < 256^(2 P)
+    t8 = torch.stack(t_bytes, dim=-1)  # (B, S, C, 2 P)
+    t16 = t8[..., 0::2] | (t8[..., 1::2] << 8)
+    t16 = torch.cat([t16, torch.zeros_like(t16[..., :1])], dim=-1)
+    u = _reduce_wide_plain(field, t16, size)
+    if tw is not None:
+        u = mont_mul_plain(field, u, tw)
+    return u
+
+
 def _check_level_tw(field: Field, device, size: int, cols: int, tw) -> None:
     """A level's twiddle: None, an (n16,) scalar or an (S, C, n16) table,
     on the level's device, contiguous where a kernel reads it."""
@@ -561,16 +683,38 @@ def _level_args(field: Field, radix: int, tw):
     chain = reduction_chain(field, radix)
     chain_words = [wd for m in chain for wd in _words(m, nw)]
     tw_mode = 0 if tw is None else (1 if tw.dim() == 1 else 2)
-    return (tw_mode, tw.data_ptr() if tw is not None else None, _u32_array(_words(field.p, nw)),
-            _pinv0(field),
+    p_words, pinv0, _ = _field_args(field)
+    return (tw_mode, tw.data_ptr() if tw is not None else None, p_words, pinv0,
             _u32_array(chain_words) if chain_words else None, len(chain))
 
 
-def ntt_level(field: Field, x, w, tw=None):
+MMA_RADICES = (32, 64, 128)
+
+
+def ntt_level_body(field: Field, size: int) -> str:
+    """Which body of the ntt_level kernel a level takes, from the field and
+    the radix alone: "mma" (byte planes on the int8 tensor cores) for a
+    16-limb field at S = 32, 64 or 128, whose depth fills the products'
+    32 bytes; "limb" (the integer pipe) for every other S <= 128, which is
+    the 4-limb fields and the small terminal radices. Raises where neither
+    applies."""
+    if field.n16 == 16 and size in MMA_RADICES:
+        return "mma"
+    if field.n16 in (4, 16) and 1 <= size <= 128:
+        return "limb"
+    raise ValueError(f"ntt_level takes n16 of 4 or 16 and S <= 128, got n16={field.n16}, S={size}")
+
+
+def ntt_level(field: Field, x, w, tw=None, w_planes=None, body=None):
     """One radix-S DFT level over axis 1 of x (B, S, C, n16) with the
     (S, S, n16) Montgomery DFT matrix w, then an optional Montgomery
     twiddle: a scalar (n16,) or an (S, C, n16) table wrapping over B.
-    CPU: plain version. CUDA: the ntt_level kernel."""
+    CPU: plain version. CUDA: the ntt_level kernel, in the body that
+    `ntt_level_body` names for the field and S. The "mma" body reads W as
+    its (2 n16, S, S) uint8 byte-plane matrix `w_planes`
+    (`dft_byte_planes(w)`, derived here when the caller keeps no table).
+    `body` asks for one body by name, for comparing the two on one input:
+    "limb" serves every shape, "mma" only its own."""
     _check_limbs(field, x, w)
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, C, n16), got {tuple(x.shape)}")
@@ -582,19 +726,36 @@ def ntt_level(field: Field, x, w, tw=None):
         return ntt_level_plain(field, x, w, tw)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("ntt_level operands must be contiguous")
-    if size > 128:
-        raise ValueError("ntt_level takes S <= 128")
+    if not (x.is_contiguous() and w.is_contiguous()) or x.data_ptr() % 16:
+        raise ValueError("ntt_level operands must be contiguous and 16-byte aligned")
+    natural = ntt_level_body(field, size)
+    if body is None:
+        body = natural
+    elif body not in NTT_LEVEL_BODIES or (body == "mma" and natural != "mma"):
+        raise ValueError(f"body {body!r} does not take n16={field.n16}, S={size}")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    code = _kernels().hodor_ntt_level(
-        field.n16, out.data_ptr(), x.data_ptr(), w.data_ptr(), bsz, size, cols,
-        *_level_args(field, size, tw), _stream(),
-    )
-    _check(code, "ntt_level")
+    if body == "mma":
+        if w_planes is None:
+            w_planes = dft_byte_planes(w)
+        if (w_planes.dtype != torch.uint8 or tuple(w_planes.shape) != (2 * field.n16, size, size)
+                or w_planes.device != x.device or not w_planes.is_contiguous()
+                or w_planes.data_ptr() % 16):
+            raise ValueError(f"w_planes must be a contiguous ({2 * field.n16}, {size}, {size}) "
+                             "uint8 tensor on the level's device")
+        code = _kernels().hodor_ntt_level_mma(
+            field.n16, out.data_ptr(), x.data_ptr(), w_planes.data_ptr(), bsz, size, cols,
+            *_level_args(field, size, tw), _stream(),
+        )
+    else:
+        code = _kernels().hodor_ntt_level(
+            field.n16, out.data_ptr(), x.data_ptr(), w.data_ptr(), bsz, size, cols,
+            *_level_args(field, size, tw), _stream(),
+        )
+    _check(code, f"ntt_level ({body})")
     launch_counts["ntt_level"] += 1
+    ntt_level_body_counts[body] += 1
     return out
 
 
@@ -648,7 +809,7 @@ def fri_fold(field: Field, lo, hi, w, c_scaled, inv2, out=None):
         n, out.data_ptr(), lo.data_ptr(), _row_stride(lo, "lo"), hi.data_ptr(),
         _row_stride(hi, "hi"), w.data_ptr(), _row_stride(w, "w"),
         c_scaled.data_ptr(), inv2.data_ptr(), half,
-        _u32_array(_words(field.p, n // 2)), _pinv0(field), _stream(),
+        *_field_args(field)[:2], _stream(),
     )
     _check(code, "fri_fold")
     launch_counts["fri_fold"] += 1

@@ -6,10 +6,10 @@ values below p: the JAX package's (..., n16) uint32 layout with the same
 bytes per element. int32 because CPU torch has no add, shift or compare
 for uint32; the plain code widens to int64 for products and carries.
 
-`LimbOps` carries its device. `mul`, `add` and `sub` go to the kernel
-wrappers of field/kernels.py (CUDA kernel on a CUDA tensor, plain
-version on a CPU tensor); every other operation is composed from them
-and plain tensor ops.
+`LimbOps` carries its device. `mul`, `add`, `sub` and the static powers
+(`pow_static`, `inv_fermat`) go to the kernel wrappers of field/kernels.py
+(CUDA kernel on a CUDA tensor, plain version on a CPU tensor); every
+other operation is composed from them and plain tensor ops.
 """
 
 from __future__ import annotations
@@ -148,18 +148,13 @@ class LimbOps:
         return self.mul(a, a)
 
     def pow_static(self, a, e: int):
-        """a^e for a Python-int exponent (square-and-multiply)."""
+        """a^e for a Python-int exponent: square-and-multiply inside one
+        launch of the mont_pow kernel, whatever e is."""
         if e == 0:
             return self.one_m.expand(a.shape).clone()
-        result = None
-        base = a
-        while e:
-            if e & 1:
-                result = base if result is None else self.mul(result, base)
-            e >>= 1
-            if e:
-                base = self.square(base)
-        return result
+        if e == 1:
+            return a
+        return kernels.mont_pow(self.field, a.contiguous(), e)
 
     def to_mont_arr(self, canonical_limbs):
         """Canonical-form limbs -> Montgomery form (mul by R^2)."""
@@ -232,15 +227,11 @@ class LimbOps:
 
     def inv_fermat(self, x):
         """x^(p-2), MSB-first square-and-multiply over the exponent bits
-        (about 1.5 * log2(p) elementwise muls). For single elements or
-        small batches; large arrays go through `batch_inverse`."""
-        e = self.field.p - 2
-        acc = self.one_m.expand(x.shape).clone()
-        for i in reversed(range(e.bit_length())):
-            acc = self.square(acc)
-            if (e >> i) & 1:
-                acc = self.mul(acc, x)
-        return acc
+        (about 1.5 * log2(p) products an element) as one launch of the
+        mont_pow kernel: one device program, as the JAX package's fori_loop.
+        For single elements or small batches; large arrays go through
+        `batch_inverse`."""
+        return kernels.mont_pow(self.field, x.contiguous(), self.field.p - 2)
 
     def batch_inverse(self, arr):
         """Elementwise inverse of (N, n16) via a product tree: pairwise

@@ -30,8 +30,10 @@ import torch
 LOG_ROWS = 20
 
 GROUPS = (
-    ("ntt_level", ("ntt_level_kernel",)),
-    ("mont_mul", ("mont_mul_kernel",)),
+    ("ntt_level (mma body)", ("ntt_level_mma_kernel",)),
+    ("ntt_level (limb body)", ("ntt_level_kernel",)),
+    ("mont_mul", ("mont_mul_kernel", "mont_mul_flat_kernel", "mont_mul_grid_kernel")),
+    ("mont_pow", ("mont_pow_kernel",)),
     ("addsub", ("addsub_kernel",)),
     ("blake2s", ("blake2s_kernel",)),
     ("fri_fold", ("fri_fold_kernel",)),

@@ -20,7 +20,8 @@ from hodor_tpu_torch.field import F257, F_STARK, LimbOps
 from hodor_tpu_torch.field import kernels as K
 from hodor_tpu_torch.merkle.blake2s import keyed_midstate
 from hodor_tpu_torch.ntt import intt, ntt
-from hodor_tpu_torch.ntt.matmul import dft_matrix, encode_s8, folded_dft_matrix
+from hodor_tpu_torch.ntt.matmul import (dft_matrix, dft_matrix_planes, encode_s8,
+                                        folded_dft_matrix)
 
 torch.set_num_threads(1)
 
@@ -92,6 +93,100 @@ def test_ntt_level_kernel(dev, name, size, cols, tw):
     w = dft_matrix(ops, size, False)
     got = K.ntt_level(field, x.to(dev), w.to(dev), None if t is None else t.to(dev))
     _same(got, K.ntt_level_plain(field, x, w, t))
+
+
+# ragged edges of the tensor-core body's 32 x 16 tile: C not a multiple of
+# 16, B * C = 1, a batch boundary inside a tile, each radix it takes
+BODY_CASES = [(128, 7, 3, "table"), (128, 1, 33, "scalar"), (128, 20, 1, "table"),
+              (128, 1, 1, None), (64, 5, 2, None), (64, 16, 2, "scalar"), (32, 3, 5, "table"),
+              (32, 1, 1, "scalar"), (32, 40, 1, None)]
+
+
+@pytest.mark.parametrize("size,cols,bsz,tw", BODY_CASES)
+def test_ntt_level_bodies_agree_with_the_plain_version(dev, size, cols, bsz, tw):
+    field = F_STARK
+    ops = LimbOps(field, "cpu")
+    x = _canonical(field, (bsz, size, cols), 17)
+    x[0, 0, 0] = 0xFFFF  # every byte at its largest, below p's top bit
+    x[0, 0, 0, -1] = (1 << (field.num_bits - 1 - 16 * (field.n16 - 1))) - 1
+    t = {"table": _canonical(field, (size, cols), 18), "scalar": _canonical(field, (), 19),
+         None: None}[tw]
+    w = dft_matrix(ops, size, False)
+    planes = dft_matrix_planes(ops, size, False)
+    want = K.ntt_level_plain(field, x, w, t)
+    assert torch.equal(K.ntt_level_planes_plain(field, x, planes, t), want)
+    xd, wd, td = x.to(dev), w.to(dev), None if t is None else t.to(dev)
+    assert K.ntt_level_body(field, size) == "mma"
+    for body, kwargs in (("mma", {"w_planes": planes.to(dev)}), ("mma", {"body": "mma"}),
+                         ("limb", {"body": "limb"})):
+        before = (K.launch_counts["ntt_level"], dict(K.ntt_level_body_counts))
+        got = K.ntt_level(field, xd, wd, td, **kwargs)
+        _same(got, want)
+        assert K.launch_counts["ntt_level"] == before[0] + 1
+        assert K.ntt_level_body_counts[body] == before[1][body] + 1
+    with pytest.raises(ValueError):
+        K.ntt_level(field, xd[:, :16].contiguous(), dft_matrix(ops, 16, False).to(dev),
+                    body="mma")
+
+
+def test_mont_mul_layouts(dev):
+    """Each body of the mont_mul kernel: flat (contiguous, scalar, a view
+    offset by one element, a strided 1-D view), grid (the LDE shift's
+    broadcast form) and general (what collapses to neither)."""
+    field = F_STARK
+    a = _canonical(field, (2, 5, 70), 20)
+    b = _canonical(field, (5, 70), 21)
+    coeffs, pw = a[:, :1], b  # (2, 1, 70) x (5, 70): stride 0 on each side
+    flat = a.reshape(-1, field.n16)
+    cases = {
+        "contiguous": (a, a.flip(0).contiguous()),
+        "offset view": (flat[1:], flat[:-1]),
+        "strided 1-D": (flat[0:699:3], flat[1:700:3]),
+        "period": (a, b),
+        "lde shift": (coeffs, pw),
+        "general": (a.transpose(0, 2), b.transpose(0, 1)[:, :, None]),
+        "narrow inner": (a[:, :, :3], b[:, 5:8]),
+    }
+    ad, bd = a.to(dev), b.to(dev)
+    flat_d = ad.reshape(-1, field.n16)
+    on_card = {
+        "contiguous": (ad, ad.flip(0).contiguous()),
+        "offset view": (flat_d[1:], flat_d[:-1]),
+        "strided 1-D": (flat_d[0:699:3], flat_d[1:700:3]),
+        "period": (ad, bd),
+        "lde shift": (ad[:, :1], bd),
+        "general": (ad.transpose(0, 2), bd.transpose(0, 1)[:, :, None]),
+        "narrow inner": (ad[:, :, :3], bd[:, 5:8]),
+    }
+    for name, (x, y) in cases.items():
+        xd, yd = on_card[name]
+        assert xd.stride() == x.stride() and yd.stride() == y.stride(), name
+        _same(K.mont_mul(field, xd, yd), K.mont_mul_plain(field, x, y))
+        _same(K.addsub(field, xd, yd, "sub"), K.addsub_plain(field, x, y, "sub"))
+
+
+@pytest.mark.parametrize("count", [1, 7, 1 << 16])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_mont_pow_kernel(dev, name, count):
+    field = FIELDS[name]
+    ops = LimbOps(field, dev)
+    x = _canonical(field, (count,), 22)
+    x[0] = ops.one_m.cpu()
+    xd = x.to(dev)
+    e = field.p - 2
+    before = K.launch_counts["mont_mul"]
+    got = K.mont_pow(field, xd, e)
+    assert K.launch_counts["mont_mul"] == before + 1  # one launch whatever e is
+    _same(got, K.mont_pow_plain(field, xd, e))
+    nonzero = ~ops.is_zero(xd)
+    _same(ops.mul(got, xd)[nonzero], ops.one_m.expand(count, field.n16)[nonzero])
+    for small in (0, 1, 2, 5):
+        _same(K.mont_pow(field, xd[:7].contiguous(), small),
+              K.mont_pow_plain(field, x[:7], small))
+    before = K.launch_counts["mont_mul"]
+    inv = ops.inv_fermat(xd[0])
+    assert K.launch_counts["mont_mul"] == before + 1
+    _same(inv, ops.one_m)
 
 
 @pytest.mark.parametrize("half", [1, 3, 1001])
