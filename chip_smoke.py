@@ -7,14 +7,18 @@ Phases, each reported on its own line:
   1. device: a CUDA card is required (there is no CPU path); prints the
      card's name and power limit from nvidia-smi;
   2. build: compiles the CUDA kernels from hodor_tpu_torch/csrc into
-     build/ (one nvcc per source, all at once) and prints the seconds;
+     build/ (one nvcc per source, all at once) and the host library of
+     the native witness chains (g++), and prints the seconds of each;
   3. kernels: each of the seven kernels (and s8dot, the contraction of
      dft_reduce alone, and mont_pow, the static power in mont_mul.cu)
      against its plain PyTorch version on the card, on seeded random
-     canonical inputs at the shapes the prove gives it; ntt_level in both
-     of its bodies (the tensor-core one and the limb one) on the same
-     inputs, timed in turn; outputs must be bit-equal (tolerance 0: every
-     output is canonical);
+     canonical inputs at the shapes the prove gives it; ntt_level and
+     dft_reduce in both of their bodies (the tensor-core one and the
+     integer-pipe one) on the same inputs, timed in turn, dft_reduce also
+     on ragged shapes, a 64-bit field and a random W that is no fold of a
+     DFT matrix; s8dot at a bare launch's shape and at the fused level's
+     product shape beside torch._int_mm; outputs must be bit-equal
+     (tolerance 0: every output is canonical);
      kernel and plain times from CUDA events after a warm-up, beside the
      least time the card could take (bytes over 3.35 TB/s or operations
      over the peak of their type, whichever is larger) and, where one
@@ -25,12 +29,17 @@ Phases, each reported on its own line:
      the "two_step" and "fused" level forms; proof bytes and challenge
      logs must equal tests/golden/, and the port's verifier must accept;
   5. main path at size: a quadratic VDF over F_STARK at 2^20 rows, lde
-     factor 16, FRI to a constant: prover set-up, a cold and a warm prove
-     with synchronized stage walls and peak device memory, the verifier's
-     acceptance and its rejection of a tampered proof;
+     factor 16, FRI to a constant, its witness from the native chain as a
+     packed array: prover set-up, a cold and a warm prove with
+     synchronized stage walls and peak device memory, encode_witness
+     alone, the verifier's acceptance and its rejection of a tampered
+     proof; then a 2^14-row prove from the Python chain's lists and from
+     the native array, whose proof bytes must be equal;
   6. the cubic VDF (4 registers) the same way at 2^20 rows;
-  7. the quadratic VDF at 2^16 rows under each level form: the three
-     serialized proofs must be equal and each must verify.
+  7. the quadratic VDF at 2^16 rows under each level form, from the
+     Python chain's lists: the three serialized proofs must be equal and
+     each must verify; the "fused" prove must run the tensor-core body of
+     dft_reduce.
 Every path of phases 5-7 zeroes the launch counts just before it runs
 and reads them just after, names the kernels it must have launched and
 prints the launches of each ntt_level body; the 2^20-row paths must have
@@ -51,6 +60,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LOG_ROWS = 20
 LOG_ROWS_LEVEL_FORMS = 16
+LOG_ROWS_WITNESS_FORMS = 14
 
 # Published peaks of one H100 SXM: device memory 3.35 TB/s; int8 on the
 # tensor cores 1,979 TOP/s (a multiply-add is two operations); 32-bit
@@ -62,7 +72,8 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "int32": 67e12 / 4}
 # name -> (source, the TPU kernel it replaces). mont_mul.cu has two
 # entries, hodor_mont_mul and hodor_mont_pow (x^e in one launch, counted
 # with mont_mul); ntt_level.cu has two bodies, "mma" (the contraction of
-# csrc/byte_plane_mma.cuh on the int8 tensor cores) and "limb".
+# csrc/byte_plane_mma.cuh on the int8 tensor cores) and "limb";
+# dft_reduce.cu has two, "mma" and "dp4a", and the entry hodor_s8dot.
 KERNEL_INFO = {
     "mont_mul": ("hodor_tpu_torch/csrc/mont_mul.cu", "hodor_tpu/field/pallas_kernels.py:283"),
     "addsub": ("hodor_tpu_torch/csrc/addsub.cu", "hodor_tpu/field/pallas_kernels.py:878"),
@@ -138,7 +149,7 @@ def phase_kernels(dev):
     """Each kernel against its plain version; returns {name: record}."""
     import torch
 
-    from hodor_tpu_torch.field import F_STARK, LimbOps
+    from hodor_tpu_torch.field import F257, F_STARK, LimbOps
     from hodor_tpu_torch.field import kernels as K
     from hodor_tpu_torch.merkle.blake2s import keyed_midstate
     from hodor_tpu_torch.ntt import matmul as M
@@ -333,22 +344,71 @@ def phase_kernels(dev):
                 nbytes(columns, t), n * (OPS_WIDE_REDUCE + (OPS_MONT_MUL if t is not None else 0)),
                 reps=5, plain_reps=1)
     del columns
+    def dft_case(case, fld, w8, wsum, xs8, size, t, reps=3):
+        """One dft_reduce shape: the body the wrapper picks against the
+        plain version (and against the plain walk of the columns with a
+        running carry, the kernels' own order), and where that is the
+        tensor-core body the __dp4a body too."""
+        body = K.dft_reduce_body(fld, size)
+        others = {"dp4a": lambda: K.dft_reduce(fld, w8, wsum, xs8, size, t, body="dp4a")} \
+            if body == "mma" else {}
+        if not torch.equal(K.dft_reduce_carry_plain(fld, w8, wsum, xs8, size, t),
+                           K.dft_reduce_plain(fld, w8, wsum, xs8, size, t)):
+            raise AssertionError(f"dft_reduce {case}: the two plain versions differ")
+        before = dict(K.dft_reduce_body_counts)
+        n_out = xs8.shape[0] * xs8.shape[1] * size
+        compare("dft_reduce", f"{case} [{body}]",
+                lambda: K.dft_reduce(fld, w8, wsum, xs8, size, t),
+                lambda: K.dft_reduce_plain(fld, w8, wsum, xs8, size, t),
+                nbytes(w8, wsum, xs8, t), n_out * 2 * w8.shape[0] * w8.shape[2], "int8",
+                reps=reps, plain_reps=1, other_bodies=others)
+        if K.dft_reduce_body_counts[body] == before[body]:
+            raise AssertionError(f"dft_reduce {case}: the {body} body did not launch")
+
     for label, t in (("no twiddle", None), ("twiddle table", tw), ("scalar twiddle", ninv)):
-        compare("dft_reduce", f"(64,128,128) {label}",
-                lambda: K.dft_reduce(field, w_s8, w_sum, x_s8, 128, t),
-                lambda: K.dft_reduce_plain(field, w_s8, w_sum, x_s8, 128, t),
-                nbytes(w_s8, w_sum, x_s8, t), n * 2 * w_s8.shape[0] * w_s8.shape[2], "int8",
-                reps=3, plain_reps=1)
-    del x_s8
-    sa = torch.randint(-128, 128, (128, 512), generator=gen, dtype=torch.int8).to(dev)
-    sb = torch.randint(-128, 128, (512, 128), generator=gen, dtype=torch.int8).to(dev)
-    want = (sa.cpu().to(torch.int32) @ sb.cpu().to(torch.int32)).to(dev)
-    if not torch.equal(K.s8dot_plain(sa, sb), want):
-        raise AssertionError("s8dot_plain differs from the int32 product")
-    compare("dft_reduce", "s8dot (128,512).(512,128)",
-            lambda: K.s8dot(sa, sb), lambda: K.s8dot_plain(sa, sb),
-            nbytes(sa, sb), 2 * 128 * 512 * 128, "int8",
-            library_fn=lambda: torch._int_mm(sa, sb))
+        dft_case(f"(64,128,128) {label}", field, w_s8, w_sum, x_s8, 128, t)
+    # ragged edges of the tensor-core body's 64 x 32 tile, the radix-32
+    # level (a tile of 32 x 32), a 64-bit field (the __dp4a body alone) ...
+    dft_case("(3,128,20) twiddle table", field, w_s8, w_sum, x_s8[:3, :20].contiguous(), 128,
+             tw[:, :20].contiguous(), reps=10)
+    dft_case("(1,128,1)", field, w_s8, w_sum, x_s8[:1, :1].contiguous(), 128, None, reps=10)
+    w32_s8, w32_sum = M.folded_dft_matrix(ops, 32, False)
+    dft_case("(7,32,5) scalar twiddle", field, w32_s8, w32_sum,
+             M.encode_s8(x[:7, :32, :5].contiguous()).contiguous(), 32, ninv, reps=10)
+    ops257 = LimbOps(F257, dev)
+    x257 = torch.zeros((5, 128, 9, F257.n16), dtype=torch.int32)
+    x257[..., 0] = torch.randint(0, F257.p, (5, 128, 9), generator=gen, dtype=torch.int32)
+    x257 = x257.to(dev)
+    w257_s8, w257_sum = M.folded_dft_matrix(ops257, 128, False)
+    dft_case("F257 n16=4 (5,128,9)", F257, w257_s8, w257_sum,
+             M.encode_s8(x257).contiguous(), 128, None, reps=10)
+    # ... and a W that is no fold of anything: random int8 in the columns
+    # below 60, so that t stays under the reduction's bound 128 p^2
+    w_rand = torch.randint(-128, 128, tuple(w_s8.shape), generator=gen, dtype=torch.int8)
+    w_rand[60:] = -128
+    w_rand = w_rand.to(dev)
+    w_rand_sum = (w_rand.to(torch.int32) + 128).sum(dim=-1, dtype=torch.int32)
+    dft_case("(4,128,40) random int8 W, table", field, w_rand, w_rand_sum,
+             x_s8[:4, :40].contiguous(), 128, tw[:, :40].contiguous(), reps=10)
+    del x_s8, w_rand, w_rand_sum
+
+    # the contraction alone: a bare launch's shape, and the product of the
+    # fused level at 2^20 outputs (all 63 columns of W against all of x)
+    for m_rows, depth, n_cols in ((128, 512, 128), (8064, 4096, 8192)):
+        sa = torch.randint(-128, 128, (m_rows, depth), generator=gen, dtype=torch.int8).to(dev)
+        sb = torch.randint(-128, 128, (depth, n_cols), generator=gen, dtype=torch.int8).to(dev)
+        if m_rows == 128:
+            want = (sa.cpu().to(torch.int32) @ sb.cpu().to(torch.int32)).to(dev)
+            if not torch.equal(K.s8dot_plain(sa, sb), want):
+                raise AssertionError("s8dot_plain differs from the int32 product")
+            del want
+        if not torch.equal(torch._int_mm(sa, sb), K.s8dot_plain(sa, sb)):
+            raise AssertionError("torch._int_mm differs from s8dot_plain")
+        compare("dft_reduce", f"s8dot ({m_rows},{depth}).({depth},{n_cols})",
+                lambda: K.s8dot(sa, sb), lambda: K.s8dot_plain(sa, sb),
+                nbytes(sa, sb), 2 * m_rows * depth * n_cols, "int8",
+                library_fn=lambda: torch._int_mm(sa, sb), reps=10, plain_reps=2)
+    del sa, sb
 
     # the three forms of the level on the same x and twiddle table
     forms = {}
@@ -420,6 +480,7 @@ def phase_at_size(dev, label: str, model):
     """Set-up, cold and warm prove, verify and a tampered proof for one
     model at 2^LOG_ROWS rows. Returns the launch counts of the set-up +
     cold prove + verify."""
+    import numpy as np
     import torch
 
     from hodor_tpu_torch.field import kernels as K
@@ -429,8 +490,12 @@ def phase_at_size(dev, label: str, model):
     field = model.field
     t0 = time.perf_counter()
     witness, props = model.into_arp()
+    if not model.native or not isinstance(witness, np.ndarray):
+        raise AssertionError(f"{label}: the 2^{LOG_ROWS}-row witness must come from the native "
+                             "chain as a packed array")
     log(f"{label}: 2^{LOG_ROWS} rows, {props.num_registers} registers, "
-        f"witness {time.perf_counter() - t0:.2f} s")
+        f"witness (native chain, {witness.dtype} {witness.shape}) "
+        f"{time.perf_counter() - t0:.3f} s")
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -467,6 +532,13 @@ def phase_at_size(dev, label: str, model):
     log(f"{label}: warm prove {warm:.3f} s (stage walls: {prover.last_timings.to_json()})")
     log(f"{label}: peak device memory cold {peak_cold / 2**30:.3f} GiB, "
         f"warm {peak_warm / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w_dev = prover.arp.encode_witness(witness)
+    torch.cuda.synchronize()
+    log(f"{label}: encode_witness alone {time.perf_counter() - t0:.4f} s "
+        f"-> {tuple(w_dev.shape)} on {w_dev.device}")
+    del w_dev
     if not verifier.verify(proof):
         raise AssertionError(f"{label}: the verifier rejects the warm proof")
     proof.f_at_z_m[0] = (proof.f_at_z_m[0] + 1) % field.p
@@ -475,6 +547,38 @@ def phase_at_size(dev, label: str, model):
     log(f"{label}: warm proof accepted; tampered f_at_z_m[0] rejected")
     require_launched(label, counts, MAIN_PATH_KERNELS)
     return counts, bodies
+
+
+def phase_witness_forms(dev) -> None:
+    """A 2^LOG_ROWS_WITNESS_FORMS-row quadratic VDF proved from the Python
+    chain's lists and from the native chain's packed array: equal proof
+    bytes, both verified."""
+    import numpy as np
+
+    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.verifier import Verifier
+
+    steps = (1 << LOG_ROWS_WITNESS_FORMS) - 1
+    proofs, seconds = {}, {}
+    for form in ("python", "native"):
+        t0 = time.perf_counter()
+        witness, props = VDF(F_STARK, 1, 2, steps, witness=form).into_arp()
+        seconds[form] = time.perf_counter() - t0
+        if isinstance(witness, np.ndarray) != (form == "native"):
+            raise AssertionError(f"witness form {form!r} gave a {type(witness).__name__}")
+        prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev)
+        proof = prover.prove(witness)
+        if not Verifier(props, lde_factor=16).verify(proof):
+            raise AssertionError(f"witness form {form!r}: the verifier rejects the proof")
+        proofs[form] = serialize_proof(proof, F_STARK)
+    if proofs["python"] != proofs["native"]:
+        raise AssertionError("the proofs from the Python and the native witness differ")
+    log(f"witness forms: 2^{LOG_ROWS_WITNESS_FORMS} rows, proofs from the Python chain "
+        f"({seconds['python']:.3f} s) and the native chain ({seconds['native']:.3f} s) are equal "
+        f"({len(proofs['python'])} bytes), both verified")
 
 
 def phase_level_forms(dev):
@@ -489,10 +593,11 @@ def phase_level_forms(dev):
     from hodor_tpu_torch.prover import Prover
     from hodor_tpu_torch.verifier import Verifier
 
-    witness, props = VDF(F_STARK, 1, 2, (1 << LOG_ROWS_LEVEL_FORMS) - 1).into_arp()
+    witness, props = VDF(F_STARK, 1, 2, (1 << LOG_ROWS_LEVEL_FORMS) - 1,
+                         witness="python").into_arp()
     verifier = Verifier(props, lde_factor=16)
     must = {"level": ("ntt_level",), "two_step": ("wide_reduce",), "fused": ("dft_reduce",)}
-    proofs, counts = {}, {}
+    proofs, counts, fused_bodies = {}, {}, {}
     for impl in ("level", "two_step", "fused"):
         torch.cuda.empty_cache()
         K.reset_launch_counts()
@@ -516,10 +621,17 @@ def phase_level_forms(dev):
         others = [k for kk, v in must.items() if kk != impl for k in v]
         if any(counts[impl][k] for k in others):
             raise AssertionError(f"{label}: another form's kernel launched: {counts[impl]}")
+        if impl == "fused":
+            fused_bodies = dict(K.dft_reduce_body_counts)
+            log(f"{label}: dft_reduce launches by body {json.dumps(fused_bodies)}")
+            if fused_bodies["mma"] == 0 or \
+                    fused_bodies["mma"] + fused_bodies["dp4a"] != counts[impl]["dft_reduce"]:
+                raise AssertionError(f"{label}: the fused prove must run the tensor-core body "
+                                     f"of dft_reduce, got {fused_bodies}")
     if not (proofs["level"] == proofs["two_step"] == proofs["fused"]):
         raise AssertionError("the proofs under the three level forms differ")
     log(f"level forms: the three serialized proofs are equal ({len(proofs['level'])} bytes)")
-    return counts
+    return counts, fused_bodies
 
 
 def main() -> int:
@@ -533,6 +645,7 @@ def main() -> int:
     from hodor_tpu_torch.field import F_STARK
     from hodor_tpu_torch.field import kernels as K
     from hodor_tpu_torch.models import VDF, CubicVDF
+    from hodor_tpu_torch.utils.native import build_host_library
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -546,6 +659,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = K.build_kernels(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib, ROOT)}")
+    t0 = time.perf_counter()
+    host_lib = build_host_library()
+    log(f"build: host library {time.perf_counter() - t0:.2f} s -> "
+        f"{os.path.relpath(host_lib, ROOT)}")
 
     records = phase_kernels(dev)
     phase_goldens(dev)
@@ -555,8 +672,10 @@ def main() -> int:
     paths = {"quadratic VDF 2^20 (main path)": main_counts}
     log(f"main path: mont_mul launches of set-up + cold prove + verify {main_counts['mont_mul']} "
         "(a static power, inv_fermat among them, is one launch)")
+    phase_witness_forms(dev)
     paths["cubic VDF 2^20"], _ = phase_at_size(dev, "cubic VDF", CubicVDF(F_STARK, 1, 1, rows))
-    for impl, counts in phase_level_forms(dev).items():
+    form_counts, fused_bodies = phase_level_forms(dev)
+    for impl, counts in form_counts.items():
         paths[f"quadratic VDF 2^{LOG_ROWS_LEVEL_FORMS}, level form {impl}"] = counts
     never = [k for k in K.KERNELS if not any(c[k] for c in paths.values())]
     if never:
@@ -582,6 +701,9 @@ def main() -> int:
         if name == "ntt_level":
             kernels[-1]["launches_by_body"] = main_bodies
             kernels[-1]["contraction"] = "hodor_tpu_torch/csrc/byte_plane_mma.cuh"
+        if name == "dft_reduce":
+            kernels[-1]["launches_by_body"] = fused_bodies
+            kernels[-1]["entries"] = ["hodor_dft_reduce_mma", "hodor_dft_reduce", "hodor_s8dot"]
         if name == "mont_mul":
             kernels[-1]["entries"] = ["hodor_mont_mul", "hodor_mont_pow"]
     log(f"device: {smi}")

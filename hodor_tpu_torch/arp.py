@@ -17,8 +17,9 @@ rows as tensor ops on the device of the given LimbOps.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Union
 
+import numpy as np
 import torch
 
 from .air.constraint import (
@@ -31,8 +32,9 @@ from .air.constraint import (
 from .domain import Domain, next_power_of_two
 from .errors import SynthesisError, TracingError, UnsatisfiedError
 from .field.field import Field
-from .field.limbs import LimbOps
+from .field.limbs import LimbOps, is_u64_rows
 from .ntt import intt
+from .utils.native import u64_rows_to_ints
 
 
 @dataclasses.dataclass
@@ -73,6 +75,11 @@ def remap_constraint(c: Constraint, column_domain: Domain) -> Constraint:
     return dataclasses.replace(c, terms=new_terms)
 
 
+# a witness as the models hand it over: columns of canonical ints, or the
+# packed (R, rows, 4) uint64 array of the native chains
+Witness = Union[List[List[int]], np.ndarray]
+
+
 class ARPInstance:
     """Per-register ARP (reference ARPInstance<F, PerRegisterARP>) on the
     device of `ops`."""
@@ -107,10 +114,15 @@ class ARPInstance:
             raise SynthesisError("row count mismatch")
         return intt(self.ops, witness_device)
 
-    def encode_witness(self, witness: List[List[int]]):
-        """Host witness columns (canonical ints) -> padded (R, T, L)
-        Montgomery tensor on the device."""
+    def encode_witness(self, witness: Witness):
+        """Host witness columns -> padded (R, T, L) Montgomery tensor on
+        the device. Takes List[List[int]] (canonical ints) or the native
+        witness chains' (R, rows, 4) uint64 array of canonical
+        little-endian words (utils/native.py), which skips the packing of
+        Python ints: one copy to the device and one to-Montgomery mul."""
         t_sup = next_power_of_two(self.properties.num_rows)
+        if is_u64_rows(witness):
+            return self.ops.encode_u64_rows(witness, pad_rows=t_sup)
         padded = [list(col) + [0] * (t_sup - len(col)) for col in witness]
         return self.ops.encode(padded)
 
@@ -119,14 +131,19 @@ class ARPInstance:
 
     @staticmethod
     def is_satisfied(
-        properties: InstanceProperties, witness: List[List[int]], ops: LimbOps
+        properties: InstanceProperties, witness: Witness, ops: LimbOps
     ) -> None:
         """Raises UnsatisfiedError if some constraint fails. Constraints
         here are PRE-ROUTING (steps differences still in steps). Evaluated
-        as tensor ops over all rows of each constraint's density."""
+        as tensor ops over all rows of each constraint's density. Takes
+        both witness forms of `encode_witness`."""
         field = properties.field
-        num_rows = len(witness[0])
-        w = ops.encode([list(c) for c in witness])  # (R, T, L)
+        packed = is_u64_rows(witness)
+        num_rows = witness.shape[1] if packed else len(witness[0])
+        if packed:
+            w = ops.encode_u64_rows(witness)  # (R, T, L)
+        else:
+            w = ops.encode([list(c) for c in witness])
 
         from .air.density import density_active_rows, density_key
 
@@ -177,6 +194,8 @@ class ARPInstance:
                 )
             if bc.value is not None:
                 got = witness[bc.register.index][bc.at_row]
+                if packed:
+                    (got,) = u64_rows_to_ints(got)
                 if got % field.p != bc.value % field.p:
                     raise UnsatisfiedError(
                         f"boundary constraint at row {bc.at_row} unsatisfied"

@@ -1,3 +1,15 @@
+// The int8 tensor-core helpers of the port, and on top of them the
+// byte-plane contraction of ntt_level.
+//
+// Two kernels share the lower half of this header: the fragment loads
+// (ldmatrix_x4 / ldmatrix_x2), the lane's fragment offsets, the padded-row
+// rule (kRowPad) and the m16n8k32 products, unsigned (mma_u8_m16n8k32) and
+// signed (mma_s8_m16n8k32). ntt_level.cu goes on to contract_byte_planes
+// below. dft_reduce.cu does not: its operands are signed, offset by -128,
+// and the plane convolution is already folded into its W, so it runs a
+// tile loop of its own over the folded depth (warp_tile_mma) and uses from
+// here only the shared half.
+//
 // The byte-plane contraction on the int8 tensor cores: the exact integer
 //   t[k, m] = sum_j W[k, j] * x[j, m]
 // of 2 NW-word operands (P = 4 NW bytes each, base 256), from byte planes
@@ -72,6 +84,17 @@ __device__ __forceinline__ void mma_u8_m16n8k32(int (&d)[4], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The same product on signed bytes (s8 x s8 -> s32), b given as its two
+// registers: the contraction of operands offset by -128.
+__device__ __forceinline__ void mma_s8_m16n8k32(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                                uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // This lane's ldmatrix row address inside a plane, relative to the plane's
 // first byte, for the A fragment of a 16-row tile starting at row0 (x4:
 // rows 0-7 and 8-15 at depth bytes 0-15, then the same rows at 16-31) ...
@@ -83,6 +106,14 @@ __device__ __forceinline__ uint32_t a_fragment_offset(int lane, int row0, int ro
 // lanes 16-31 repeat valid addresses that the instruction ignores).
 __device__ __forceinline__ uint32_t b_fragment_offset(int lane, int row0, int row_stride) {
   return (uint32_t)((row0 + (lane & 7)) * row_stride + ((lane >> 3) & 1) * 16);
+}
+
+// ... and for the B fragments of two neighbouring 8-row tiles in one x4
+// load: registers 0, 1 are the tile at row0 (depth bytes 0-15, 16-31),
+// registers 2, 3 the tile at row0 + 8.
+__device__ __forceinline__ uint32_t b_pair_fragment_offset(int lane, int row0, int row_stride) {
+  return (uint32_t)((row0 + (lane & 7) + ((lane >> 4) & 1) * 8) * row_stride +
+                    ((lane >> 3) & 1) * 16);
 }
 
 // One kPB x kPB block of plane pairs over the whole depth: acc[i][j] +=

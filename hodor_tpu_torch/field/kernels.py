@@ -14,7 +14,11 @@ Seven kernels, one per TPU kernel of the JAX package
 
 `s8dot` is dft_reduce's int8 contraction exported alone (the counterpart
 of the bare int8 product probed by scripts/tpu_qualify.py check_s8dot);
-its launches count as dft_reduce's. `mont_pow` is a second entry of
+its launches count as dft_reduce's. `dft_reduce` has two bodies in
+dft_reduce.cu, s8 products on the int8 tensor cores over a resident x
+tile and a streamed W ("mma") and `__dp4a` on the integer pipe ("dp4a");
+the wrapper picks one from the field and the radix (`dft_reduce_body`),
+and `dft_reduce_body_counts` counts each. `mont_pow` is a second entry of
 mont_mul.cu: x^e for a static exponent in one launch (the one-program
 exponent loop of hodor_tpu/field/limbs.py inv_fermat); its launches count
 as mont_mul's. `ntt_level` has two bodies in ntt_level.cu, the byte-plane
@@ -62,6 +66,8 @@ KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level", "fri_fold", "wide_reduc
 launch_counts = {name: 0 for name in KERNELS}
 NTT_LEVEL_BODIES = ("mma", "limb")
 ntt_level_body_counts = {body: 0 for body in NTT_LEVEL_BODIES}
+DFT_REDUCE_BODIES = ("mma", "dp4a")
+dft_reduce_body_counts = {body: 0 for body in DFT_REDUCE_BODIES}
 
 
 def reset_launch_counts() -> None:
@@ -69,6 +75,8 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
     for body in NTT_LEVEL_BODIES:
         ntt_level_body_counts[body] = 0
+    for body in DFT_REDUCE_BODIES:
+        dft_reduce_body_counts[body] = 0
 
 
 # ------------------------------------------------------------------ build
@@ -149,10 +157,12 @@ def _bind(lib):
     lib.hodor_wide_reduce.argtypes = [i32, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
     lib.hodor_dft_reduce.argtypes = [i32, vp, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp,
                                      i32, vp]
+    lib.hodor_dft_reduce_mma.argtypes = lib.hodor_dft_reduce.argtypes
     lib.hodor_s8dot.argtypes = [vp, vp, vp, i32, i32, i32, vp]
     for fn in (lib.hodor_mont_mul, lib.hodor_mont_pow, lib.hodor_addsub, lib.hodor_blake2s,
                lib.hodor_ntt_level, lib.hodor_ntt_level_mma, lib.hodor_fri_fold,
-               lib.hodor_wide_reduce, lib.hodor_dft_reduce, lib.hodor_s8dot):
+               lib.hodor_wide_reduce, lib.hodor_dft_reduce, lib.hodor_dft_reduce_mma,
+               lib.hodor_s8dot):
         fn.restype = ctypes.c_int
     return lib
 
@@ -891,7 +901,8 @@ def s8dot_plain(a, b):
 def s8dot(a, b):
     """Exact int8 product (M, K) . (K, N) -> (M, N) int32: the contraction
     stage of dft_reduce alone. CPU: plain version. CUDA: the s8dot entry of
-    the dft_reduce kernel."""
+    the dft_reduce kernel (its tensor-core tile code, both operands
+    streamed)."""
     if a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 2 or b.dim() != 2 \
             or a.shape[1] != b.shape[0]:
         raise ValueError(f"expected (M, K) and (K, N) int8, got {tuple(a.shape)} {a.dtype}, "
@@ -947,7 +958,46 @@ def dft_reduce_plain(field: Field, w_s8, w_sum, x_s8, radix: int, tw=None):
     return wide_reduce_plain(field, dft_columns_plain(w_s8, w_sum, x_s8), radix, tw)
 
 
-def dft_reduce(field: Field, w_s8, w_sum, x_s8, radix: int, tw=None):
+def dft_reduce_carry_plain(field: Field, w_s8, w_sum, x_s8, radix: int, tw=None):
+    """The arithmetic of both dft_reduce bodies in torch ops, where it
+    differs in order from `dft_reduce_plain`: the exact columns are walked
+    in order with a running carry that gives one byte of t a column (the
+    carry left after the last column is the top byte), and the bytes go
+    as 16-bit limbs into the same reduction, chain and twiddle. No fold
+    into relaxed limbs."""
+    cols = dft_columns_plain(w_s8, w_sum, x_s8).permute(2, 1, 3, 0).to(torch.int64)
+    run = torch.zeros(cols.shape[:-1], dtype=torch.int64, device=cols.device)
+    t_bytes = []
+    for c in range(cols.shape[-1]):
+        run = run + cols[..., c]
+        t_bytes.append(run & 0xFF)
+        run = run >> 8
+    t_bytes.append(run)  # t < radix p^2 < 256^(4 n16)
+    t8 = torch.stack(t_bytes, dim=-1)  # (B, S, C, 4 n16)
+    t16 = t8[..., 0::2] | (t8[..., 1::2] << 8)
+    t16 = torch.cat([t16, torch.zeros_like(t16[..., :1])], dim=-1)
+    u = _reduce_wide_plain(field, t16, radix)
+    if tw is not None:
+        u = mont_mul_plain(field, u, tw)
+    return u
+
+
+def dft_reduce_body(field: Field, radix: int) -> str:
+    """Which body of the dft_reduce kernel a level takes, from the field
+    and the radix alone: "mma" (s8 products on the int8 tensor cores) for
+    a 16-limb field at S = 32, 64 or 128, whose folded depth S * 32 fills
+    the 256-byte stages of the W ring; "dp4a" (the integer pipe) for every
+    other S <= 128, which is the 4-limb fields and the small radices.
+    Raises where neither applies."""
+    if field.n16 == 16 and radix in MMA_RADICES:
+        return "mma"
+    if field.n16 in (4, 16) and 1 <= radix <= 128:
+        return "dp4a"
+    raise ValueError(f"dft_reduce takes n16 of 4 or 16 and S <= 128, got n16={field.n16}, "
+                     f"S={radix}")
+
+
+def dft_reduce(field: Field, w_s8, w_sum, x_s8, radix: int, tw=None, body=None):
     """The fused NTT level on int8 byte planes: the size-`radix` DFT as an
     int8 contraction per base-256 column, the -128 offset corrections, the
     wide Montgomery reduction and the twiddle in one kernel; the columns
@@ -955,10 +1005,13 @@ def dft_reduce(field: Field, w_s8, w_sum, x_s8, radix: int, tw=None):
 
     w_s8 (4 n16 - 1, S, S * P) int8 and w_sum (4 n16 - 1, S) int32: the
     folded byte-plane DFT matrix and its row sums (ntt/matmul.py
-    folded_dft_matrix), P = 2 n16; x_s8 (B, C, S * P) int8: the bytes of
-    x[b, j, c] minus 128, depth index j * P + q contiguous; tw as for
-    ntt_level. Returns (B, S, C, n16). CPU: plain version. CUDA: the
-    dft_reduce kernel."""
+    folded_dft_matrix), P = 2 n16, or any int8 W with the sums of its
+    bytes plus 128; x_s8 (B, C, S * P) int8: the bytes of x[b, j, c] minus
+    128, depth index j * P + q contiguous; tw as for ntt_level. Returns
+    (B, S, C, n16). CPU: plain version. CUDA: the dft_reduce kernel, in
+    the body that `dft_reduce_body` names for the field and S. `body` asks
+    for one body by name, for comparing the two on one input: "dp4a"
+    serves every shape, "mma" only its own."""
     _check_dft_operands(field, w_s8, w_sum, x_s8, radix)
     bsz, ccols, _ = x_s8.shape
     _check_level_tw(field, x_s8.device, radix, ccols, tw)
@@ -968,15 +1021,22 @@ def dft_reduce(field: Field, w_s8, w_sum, x_s8, radix: int, tw=None):
         raise ValueError(f"unsupported device {x_s8.device}")
     if not (w_s8.is_contiguous() and w_sum.is_contiguous() and x_s8.is_contiguous()):
         raise ValueError("dft_reduce operands must be contiguous")
-    if radix > 128:
-        raise ValueError("dft_reduce takes S <= 128")
+    natural = dft_reduce_body(field, radix)
+    if body is None:
+        body = natural
+    elif body not in DFT_REDUCE_BODIES or (body == "mma" and natural != "mma"):
+        raise ValueError(f"body {body!r} does not take n16={field.n16}, S={radix}")
+    if body == "mma" and (w_s8.data_ptr() % 16 or x_s8.data_ptr() % 16):
+        raise ValueError("dft_reduce operands must be 16-byte aligned")
     out = torch.empty((bsz, radix, ccols, field.n16), dtype=torch.int32, device=x_s8.device)
     if out.numel() == 0:
         return out
-    code = _kernels().hodor_dft_reduce(
+    launch = _kernels().hodor_dft_reduce_mma if body == "mma" else _kernels().hodor_dft_reduce
+    code = launch(
         field.n16, out.data_ptr(), w_s8.data_ptr(), w_sum.data_ptr(), x_s8.data_ptr(), bsz,
         radix, ccols, *_level_args(field, radix, tw), _stream(),
     )
-    _check(code, "dft_reduce")
+    _check(code, f"dft_reduce ({body})")
     launch_counts["dft_reduce"] += 1
+    dft_reduce_body_counts[body] += 1
     return out

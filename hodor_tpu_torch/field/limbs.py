@@ -40,6 +40,38 @@ def pack_ints(values, n16: int) -> np.ndarray:
     return np.frombuffer(buf, dtype="<u2").astype(np.uint32).reshape(arr.shape + (n16,))
 
 
+def is_u64_rows(values) -> bool:
+    """Whether `values` is the packed form of canonical field elements: a
+    (..., 4) uint64 array of little-endian 64-bit words (the native witness
+    chains' output, utils/native.py)."""
+    return (isinstance(values, np.ndarray) and values.dtype == np.uint64 and values.ndim >= 1
+            and values.shape[-1] == 4)
+
+
+def u64_rows_to_limbs(rows: np.ndarray, n16: int, pad_rows: int = 0, out=None) -> np.ndarray:
+    """(..., N, 4) uint64 little-endian words -> (..., max(N, pad_rows), n16)
+    uint16 limbs, zero rows appended up to pad_rows: a view of the same
+    bytes cut to the field's limbs (the words above them must be zero), in
+    one copy, into `out` (of that shape and 16-bit items) where given."""
+    if not is_u64_rows(rows) or rows.ndim < 2:
+        raise ValueError("expected a (..., N, 4) uint64 array")
+    if n16 > 16:
+        raise ValueError(f"a 4 x 64-bit row holds 16 limbs, the field has {n16}")
+    lead, n = rows.shape[:-2], rows.shape[-2]
+    u16 = np.ascontiguousarray(rows).view("<u2").reshape(lead + (n, 16))
+    if n16 < 16 and u16[..., n16:].any():
+        raise ValueError(f"values do not fit {n16} limbs")
+    shape = lead + (max(n, pad_rows), n16)
+    if out is None:
+        out = np.empty(shape, dtype=np.uint16)
+    elif out.shape != shape or out.dtype.itemsize != 2:
+        raise ValueError(f"out must hold {shape} 16-bit limbs")
+    out = out.view(np.uint16)
+    out[..., :n, :] = u16[..., :n16]
+    out[..., n:, :] = 0
+    return out
+
+
 def unpack_ints(limbs) -> np.ndarray:
     """(..., n16) limbs -> object array of Python ints (a Python int for
     a single element)."""
@@ -110,6 +142,21 @@ class LimbOps:
         the Montgomery conversion (a mul by R^2) runs on the device."""
         packed = pack_ints(values, self.n16)
         t = torch.from_numpy(packed.astype(np.int32)).to(self.device)
+        if t.numel() == 0:
+            return t
+        return self.to_mont_arr(t)
+
+    def encode_u64_rows(self, rows: np.ndarray, pad_rows: int = 0) -> torch.Tensor:
+        """(..., N, 4) uint64 canonical little-endian words -> Montgomery
+        limb tensor (..., max(N, pad_rows), n16) on the device, zero rows
+        appended up to pad_rows. The 16-bit limbs are written once, into
+        pinned memory where the device is CUDA, cross to the device as
+        they are (2 n16 bytes an element) and are widened to int32 there;
+        one to-Montgomery mul."""
+        shape = rows.shape[:-2] + (max(rows.shape[-2], pad_rows), self.n16)
+        staged = torch.empty(shape, dtype=torch.int16, pin_memory=self.device.type == "cuda")
+        u64_rows_to_limbs(rows, self.n16, pad_rows, out=staged.numpy())
+        t = staged.to(self.device).to(torch.int32) & 0xFFFF
         if t.numel() == 0:
             return t
         return self.to_mont_arr(t)

@@ -9,12 +9,15 @@ dense degree-2 constraints:
     c0'   = c0*sq_c0 + r*c1*sq_c1
     c1'   = c0*sq_c1 + c1*sq_c0
 
-The witness is a host loop on Python ints.
+The witness chain runs on the host as a loop on Python ints or as the
+native 4 x u64 Montgomery chain (utils/native.py), as for models/vdf.py.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Tuple, Union
+
+import numpy as np
 
 from ..air.constraint import (
     BoundaryConstraint,
@@ -27,16 +30,21 @@ from ..air.constraint import (
 )
 from ..arp import InstanceProperties
 from ..field.field import Field
+from ..utils.native import cubic_vdf_witness_native, u64_rows_to_ints
+from .vdf import use_native_witness
 
 
 class CubicVDF:
-    def __init__(self, field: Field, start_c0: int, start_c1: int, num_operations: int):
+    def __init__(self, field: Field, start_c0: int, start_c1: int, num_operations: int,
+                 witness: str = "auto"):
+        """witness: "python", "native" or "auto", as for VDF."""
         self.field = field
         self.start_c0 = start_c0 % field.p
         self.start_c1 = start_c1 % field.p
         self.num_operations = num_operations
+        self.native = use_native_witness(witness, num_operations)
 
-    def into_arp(self) -> Tuple[Optional[List[List[int]]], InstanceProperties]:
+    def into_arp(self) -> Tuple[Union[List[List[int]], np.ndarray], InstanceProperties]:
         field = self.field
         r = field.p - 1  # non-residue -1
 
@@ -96,9 +104,16 @@ class CubicVDF:
         return witness, props
 
     def _witness(self):
-        """Returns (witness, final_c0, final_c1) with witness a
-        List[List[int]] of canonical ints: per row the element (c0, c1)
-        and its square, the next row being element * square."""
+        """Returns (witness, final_c0, final_c1): per row the element
+        (c0, c1) and its square, the next row being element * square.
+        witness is a List[List[int]] of canonical ints or, from the native
+        chain, a (4, rows, 4) uint64 array of little-endian words."""
+        if self.native:
+            regs = cubic_vdf_witness_native(self.field, self.start_c0, self.start_c1,
+                                            self.num_operations)
+            (final_c0,), (final_c1,) = (u64_rows_to_ints(regs[0][-1:]),
+                                        u64_rows_to_ints(regs[1][-1:]))
+            return np.stack(regs), final_c0, final_c1
         p = self.field.p
         r = p - 1
         num_values = self.num_operations + 1

@@ -2,13 +2,18 @@
 
 An Fp2 = F[x]/(x^2 - r) squaring chain with r = -1: squaring (c0, c1) is
 (c0^2 + r*c1^2, 2*c0*c1); proven with 2 registers, 2 dense degree-2
-constraints and 4 boundary constraints. The witness is a host loop on
-Python ints.
+constraints and 4 boundary constraints. The witness chain runs on the
+host in one of two forms: a loop on Python ints, or the native 4 x u64
+Montgomery chain (utils/native.py, compiled with g++ at first use), which
+long chains take by default and which hands the prover a packed
+(registers, rows, 4) uint64 array instead of lists of ints.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Tuple, Union
+
+import numpy as np
 
 from ..air.constraint import (
     BoundaryConstraint,
@@ -21,16 +26,34 @@ from ..air.constraint import (
 )
 from ..arp import InstanceProperties
 from ..field.field import Field
+from ..utils.native import u64_rows_to_ints, vdf_witness_native
+
+WITNESS_FORMS = ("auto", "python", "native")
+# chains of at least this many operations take the native form under "auto"
+_NATIVE_MIN_OPS = 1 << 12
+
+
+def use_native_witness(witness: str, num_operations: int) -> bool:
+    """Whether a model asked for `witness` runs the native chain: "native"
+    always, "python" never, "auto" from _NATIVE_MIN_OPS operations on."""
+    if witness not in WITNESS_FORMS:
+        raise ValueError(f"witness must be one of {WITNESS_FORMS}, not {witness!r}")
+    return witness == "native" or (witness == "auto" and num_operations >= _NATIVE_MIN_OPS)
 
 
 class VDF:
-    def __init__(self, field: Field, start_c0: int, start_c1: int, num_operations: int):
+    def __init__(self, field: Field, start_c0: int, start_c1: int, num_operations: int,
+                 witness: str = "auto"):
+        """witness: the form of the witness chain, "python" (ints),
+        "native" (the compiled chain; raises without g++ or for a field
+        over 256 bits) or "auto" (native for long chains)."""
         self.field = field
         self.start_c0 = start_c0 % field.p
         self.start_c1 = start_c1 % field.p
         self.num_operations = num_operations
+        self.native = use_native_witness(witness, num_operations)
 
-    def into_arp(self) -> Tuple[Optional[List[List[int]]], InstanceProperties]:
+    def into_arp(self) -> Tuple[Union[List[List[int]], np.ndarray], InstanceProperties]:
         field = self.field
         p = field.p
         non_residue = p - 1  # -1
@@ -79,8 +102,15 @@ class VDF:
         return witness, props
 
     def _witness(self):
-        """Returns (witness, final_c0, final_c1) with witness a
-        List[List[int]] of canonical ints (the Python squaring chain)."""
+        """Returns (witness, final_c0, final_c1): witness is a
+        List[List[int]] of canonical ints (the Python squaring chain) or,
+        from the native chain, a (2, rows, 4) uint64 array of canonical
+        little-endian words; `ARPInstance.encode_witness` takes both."""
+        if self.native:
+            c0_w, c1_w = vdf_witness_native(self.field, self.start_c0, self.start_c1,
+                                            self.num_operations)
+            (final_c0,), (final_c1,) = u64_rows_to_ints(c0_w[-1:]), u64_rows_to_ints(c1_w[-1:])
+            return np.stack([c0_w, c1_w]), final_c0, final_c1
         field = self.field
         p = field.p
         non_residue = p - 1

@@ -20,7 +20,7 @@ from typing import List
 import torch
 
 from .ali import ALIInstance
-from .arp import ARPInstance, InstanceProperties
+from .arp import ARPInstance, InstanceProperties, Witness
 from .field.limbs import LimbOps
 from .fri import FRIProof, NaiveFriIop
 from .fri.fri import gather_chain_queries
@@ -59,8 +59,10 @@ class Prover:
         self.lde_factor = lde_factor
         self.fri_final_degree_plus_one = fri_final_degree_plus_one
 
-    def prove(self, witness: List[List[int]]) -> InstanceProof:
-        """Full prove pipeline (src/prover/mod.rs:66-174)."""
+    def prove(self, witness: Witness) -> InstanceProof:
+        """Full prove pipeline (src/prover/mod.rs:66-174). witness: the
+        register columns as lists of canonical ints, or the native witness
+        chains' (R, rows, 4) uint64 array (`ARPInstance.encode_witness`)."""
         ops = self.ops
         field = self.field
         transcript = Blake2sTranscript(field)

@@ -6,8 +6,10 @@
 runs one cold prove, then one warm prove without the profiler and one
 under `torch.profiler`. Prints:
   - the card's name and power limit (nvidia-smi);
-  - `ARPInstance.encode_witness` alone (host packing, host->device copy,
-    to-Montgomery mul), synchronized;
+  - the witness chain's host seconds (`into_arp`: the native chain, which
+    `witness="auto"` takes at this length) and `ARPInstance.encode_witness`
+    alone (the packed array's view and padding, the host->device copy,
+    the to-Montgomery mul), synchronized;
   - the warm prove's wall without and with the profiler, and the
     profiled run's stage walls;
   - device busy time: the union of the CUDA kernel, memcpy and memset
@@ -38,7 +40,7 @@ GROUPS = (
     ("blake2s", ("blake2s_kernel",)),
     ("fri_fold", ("fri_fold_kernel",)),
     ("wide_reduce", ("wide_reduce_kernel",)),
-    ("dft_reduce", ("dft_reduce_kernel", "s8dot_kernel")),
+    ("dft_reduce", ("dft_reduce_kernel", "dft_reduce_mma_kernel", "s8dot_mma_kernel")),
     ("torch copy/cat/index", ("copy", "Cat", "cat", "index", "gather", "elementwise",
                               "Memcpy", "Memset", "fill")),
 )
@@ -73,6 +75,7 @@ def main(argv) -> int:
     from hodor_tpu_torch.field import kernels as K
     from hodor_tpu_torch.models import VDF, CubicVDF
     from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.utils.native import build_host_library
 
     which = argv[1] if len(argv) > 1 else "quadratic"
     if which not in ("quadratic", "cubic") or len(argv) > 2:
@@ -88,10 +91,13 @@ def main(argv) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"device: {smi}")
     K.build_kernels()
+    build_host_library()
     steps = (1 << LOG_ROWS) - 1
     model = VDF(F_STARK, 1, 2, steps) if which == "quadratic" else CubicVDF(F_STARK, 1, 1, steps)
+    t0 = time.perf_counter()
     witness, props = model.into_arp()
-    print(f"model: {which} VDF, {props.num_registers} registers")
+    print(f"model: {which} VDF, {props.num_registers} registers; witness chain "
+          f"({'native' if model.native else 'python'}) {time.perf_counter() - t0:.3f} s")
     prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device="cuda")
     prover.prove(witness)
     torch.cuda.synchronize()

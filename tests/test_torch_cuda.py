@@ -235,7 +235,68 @@ def test_wide_reduce_and_dft_reduce_kernels(dev, name, size, ccols, bsz, tw):
     _same(K.dft_reduce(field, w_s8.to(dev), w_sum.to(dev), x_s8.to(dev), size, td), want)
 
 
-@pytest.mark.parametrize("m,k,n", [(128, 512, 128), (37, 50, 45), (1, 3, 1)])
+# ragged edges of the tensor-core body's 64 x 32 tile: Cc no multiple of 32
+# with a batch boundary inside a tile, one output column, each radix it
+# takes (at S = 32 the tile is 32 x 32)
+DFT_BODY_CASES = [(128, 20, 3, "table"), (128, 1, 1, None), (128, 33, 2, "scalar"),
+                  (64, 5, 2, None), (64, 40, 1, "table"), (32, 5, 7, "scalar"),
+                  (32, 1, 1, "table")]
+
+
+@pytest.mark.parametrize("size,ccols,bsz,tw", DFT_BODY_CASES)
+def test_dft_reduce_bodies_agree_with_the_plain_version(dev, size, ccols, bsz, tw):
+    field = F_STARK
+    ops, x, w_s8, w_sum, t = _level_case(field, size, ccols, bsz, tw)
+    x[0, 0, 0] = 0xFFFF  # every byte at its largest, below p's top bit
+    x[0, 0, 0, -1] = (1 << (field.num_bits - 1 - 16 * (field.n16 - 1))) - 1
+    x_s8 = encode_s8(x).contiguous()
+    want = K.ntt_level_plain(field, x, dft_matrix(ops, size, False), t)
+    assert torch.equal(K.dft_reduce_plain(field, w_s8, w_sum, x_s8, size, t), want)
+    assert torch.equal(K.dft_reduce_carry_plain(field, w_s8, w_sum, x_s8, size, t), want)
+    args = (w_s8.to(dev), w_sum.to(dev), x_s8.to(dev), size, None if t is None else t.to(dev))
+    assert K.dft_reduce_body(field, size) == "mma"
+    for body, kwargs in (("mma", {}), ("mma", {"body": "mma"}), ("dp4a", {"body": "dp4a"})):
+        before = (K.launch_counts["dft_reduce"], dict(K.dft_reduce_body_counts))
+        _same(K.dft_reduce(field, *args, **kwargs), want)
+        assert K.launch_counts["dft_reduce"] == before[0] + 1
+        assert K.dft_reduce_body_counts[body] == before[1][body] + 1
+    w16_s8, w16_sum = folded_dft_matrix(ops, 16, False)
+    with pytest.raises(ValueError):
+        K.dft_reduce(field, w16_s8.to(dev), w16_sum.to(dev),
+                     encode_s8(x[:, :16]).contiguous().to(dev), 16, body="mma")
+
+
+@pytest.mark.parametrize("size,ccols,bsz", [(128, 40, 2), (32, 7, 3)])
+def test_dft_reduce_bodies_on_a_random_w(dev, size, ccols, bsz):
+    """W is taken as it comes: random int8 (the top columns at byte 0, so
+    that t stays under the reduction's bound) with the sums of its bytes."""
+    g = torch.Generator().manual_seed(23)
+    depth = size * 32
+    w_s8 = torch.randint(-128, 128, (63, size, depth), generator=g, dtype=torch.int8)
+    w_s8[60:] = -128
+    w_sum = (w_s8.to(torch.int32) + 128).sum(dim=-1, dtype=torch.int32)
+    x_s8 = torch.randint(-128, 128, (bsz, ccols, depth), generator=g, dtype=torch.int8)
+    t = _canonical(F_STARK, (size, ccols), 24)
+    want = K.dft_reduce_plain(F_STARK, w_s8, w_sum, x_s8, size, t)
+    for body in ("mma", "dp4a"):
+        _same(K.dft_reduce(F_STARK, w_s8.to(dev), w_sum.to(dev), x_s8.to(dev), size, t.to(dev),
+                           body=body), want)
+
+
+def test_s8dot_kernel_at_the_fused_level_shape(dev):
+    """(8064, 4096) . (4096, 8192): all 63 columns of the folded W against
+    2^13 columns of x, the product inside one fused level of 2^20 outputs."""
+    g = torch.Generator().manual_seed(25)
+    a = torch.randint(-128, 128, (8064, 4096), generator=g, dtype=torch.int8).to(dev)
+    b = torch.randint(-128, 128, (4096, 8192), generator=g, dtype=torch.int8).to(dev)
+    before = K.launch_counts["dft_reduce"]
+    got = K.s8dot(a, b)
+    assert K.launch_counts["dft_reduce"] == before + 1
+    _same(got, K.s8dot_plain(a, b))
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 512, 128), (37, 50, 45), (1, 3, 1), (130, 129, 68),
+                                   (64, 4096, 12)])
 def test_s8dot_kernel(dev, m, k, n):
     g = torch.Generator().manual_seed(15)
     a = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)

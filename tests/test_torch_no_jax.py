@@ -16,9 +16,12 @@ import hodor_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(hodor_tpu_torch.__path__, "hodor_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+missing = [m for m in ("hodor_tpu_torch.utils.native", "hodor_tpu_torch.models.vdf")
+           if m not in names]
+import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "hodor_tpu.")))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
 
 
