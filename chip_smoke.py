@@ -39,8 +39,26 @@ Phases, each reported on its own line:
   7. the quadratic VDF at 2^16 rows under each level form, from the
      Python chain's lists: the three serialized proofs must be equal and
      each must verify; the "fused" prove must run the tensor-core body of
-     dft_reduce.
-Every path of phases 5-7 zeroes the launch counts just before it runs
+     dft_reduce;
+  8. batch proving (Prover.prove_batch) of the quadratic VDF at 2^20 rows
+     on B = 2 lanes: phase 5's witness and the native witness of the start
+     (3, 5) under phase 5's instance; a cold and a warm batch with stage
+     walls and peak device memory; lane 0 must equal phase 5's warm proof
+     bytes and lane 1 its own sequential prove, lane 0 must verify and
+     lane 1 be rejected; the warm batch's launches per kernel beside phase
+     5's warm single prove: fri_fold and blake2s as often as in the single
+     prove, no kernel B times as often, the tensor-core body of ntt_level
+     run; the mont_mul bodies of both and the body of the G and DEEP
+     products by a per-lane challenge;
+  8b. B = 4 distinct lanes at 2^18 rows, each byte-equal to its
+     sequential prove; the warm batch's wall per proof beside a warm single
+     prove;
+  9. at 2^16 rows: a checkpointed prove and resumes after each of the four
+     stages, from_config, all byte-equal to a plain prove; the root of the
+     host Blake2s library's tree over 2^16 leaves equal to the device
+     tree's.
+Phase 8 runs right after phase 5, whose prover it reuses and then frees.
+Every path of phases 5-8b zeroes the launch counts just before it runs
 and reads them just after, names the kernels it must have launched and
 prints the launches of each ntt_level body; the 2^20-row paths must have
 run the tensor-core body.
@@ -61,6 +79,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 LOG_ROWS = 20
 LOG_ROWS_LEVEL_FORMS = 16
 LOG_ROWS_WITNESS_FORMS = 14
+LOG_ROWS_BATCH_SMALL = 18
 
 # Published peaks of one H100 SXM: device memory 3.35 TB/s; int8 on the
 # tensor cores 1,979 TOP/s (a multiply-add is two operations); 32-bit
@@ -330,6 +349,25 @@ def phase_kernels(dev):
                 nbytes(values, wv, c_scaled, two_inv), half * OPS_FRI_FOLD,
                 reps=5 if big else 20, plain_reps=1 if big else 3)
         del values, wv, lo, hi
+    # the fold with a lane axis, one launch for all lanes: the first h1
+    # round of a 2^20-row batch of two proofs, and ragged lanes
+    for lanes, half, label in ((2, 1 << 23, "B=2 half=2^23 (batch)"),
+                               (3, 1001, "B=3 half=1001 (batch, ragged)")):
+        values = random_canonical(field, (lanes, 2 * half), gen, dev)
+        wv = random_canonical(field, (half,), gen, dev)
+        cs = ops.mul(random_canonical(field, (lanes,), gen, dev), two_inv)
+        lo, hi = values[:, :half], values[:, half:]
+        before = K.launch_counts["fri_fold"]
+        K.fri_fold(field, lo, hi, wv, cs, two_inv)
+        if K.launch_counts["fri_fold"] != before + 1:
+            raise AssertionError("the fold of all lanes must be one launch")
+        big = half > 1001
+        compare("fri_fold", label,
+                lambda: K.fri_fold(field, lo, hi, wv, cs, two_inv),
+                lambda: K.fri_fold_plain(field, lo, hi, wv, cs, two_inv),
+                nbytes(values, wv, cs, two_inv), lanes * half * OPS_FRI_FOLD,
+                reps=5 if big else 20, plain_reps=1 if big else 3)
+        del values, wv, cs, lo, hi
 
     # the two-step level's reduce and the fused level at 2^20 elements:
     # the exact columns of x's byte-plane DFT (252 B per element), then
@@ -479,11 +517,15 @@ def require_launched(path: str, counts, names) -> None:
 def phase_at_size(dev, label: str, model):
     """Set-up, cold and warm prove, verify and a tampered proof for one
     model at 2^LOG_ROWS rows. Returns the launch counts of the set-up +
-    cold prove + verify."""
+    cold prove + verify, their ntt_level bodies, and the warm prove:
+    {"counts", "ntt_bodies", "mont_mul_bodies" (its launches), "proof"
+    (its bytes, serialized before the tamper), "wall", "prover",
+    "witness", "props"}."""
     import numpy as np
     import torch
 
     from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.proof_io import serialize_proof
     from hodor_tpu_torch.prover import Prover
     from hodor_tpu_torch.verifier import Verifier
 
@@ -525,10 +567,15 @@ def phase_at_size(dev, label: str, model):
                              f"body of ntt_level, got {bodies} of {counts['ntt_level']}")
 
     torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
     t0 = time.perf_counter()
     proof = prover.prove(witness)
     warm = time.perf_counter() - t0
     peak_warm = torch.cuda.max_memory_allocated()
+    warm_run = {"counts": dict(K.launch_counts), "ntt_bodies": dict(K.ntt_level_body_counts),
+                "mont_mul_bodies": dict(K.mont_mul_body_counts),
+                "proof": serialize_proof(proof, field), "wall": warm, "prover": prover,
+                "witness": witness, "props": props}
     log(f"{label}: warm prove {warm:.3f} s (stage walls: {prover.last_timings.to_json()})")
     log(f"{label}: peak device memory cold {peak_cold / 2**30:.3f} GiB, "
         f"warm {peak_warm / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
@@ -546,7 +593,7 @@ def phase_at_size(dev, label: str, model):
         raise AssertionError(f"{label}: the verifier accepts a tampered f_at_z_m[0]")
     log(f"{label}: warm proof accepted; tampered f_at_z_m[0] rejected")
     require_launched(label, counts, MAIN_PATH_KERNELS)
-    return counts, bodies
+    return counts, bodies, warm_run
 
 
 def phase_witness_forms(dev) -> None:
@@ -634,6 +681,200 @@ def phase_level_forms(dev):
     return counts, fused_bodies
 
 
+def rejected(verifier, proof) -> bool:
+    """Whether the verifier refuses a proof (False or an exception)."""
+    try:
+        return not verifier.verify(proof)
+    except Exception:
+        return True
+
+
+def phase_batch(dev, single, lanes_b: int = 2):
+    """Phase 8: prove_batch at 2^LOG_ROWS rows on B lanes, lane 0 phase
+    5's witness, lane 1 the start (3, 5) under phase 5's instance. Returns
+    the warm batch's launch counts."""
+    import torch
+
+    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.verifier import Verifier
+
+    label = f"batch 2^{LOG_ROWS} B={lanes_b}"
+    prover = single["prover"]
+    witness1, _ = VDF(F_STARK, 3, 5, (1 << LOG_ROWS) - 1).into_arp()
+    witnesses = [single["witness"], witness1]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lane1_single = serialize_proof(prover.prove(witness1), F_STARK)
+    walls, peaks = {}, {}
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        proofs = prover.prove_batch(witnesses)
+        walls[run] = time.perf_counter() - t0
+        peaks[run] = torch.cuda.max_memory_allocated()
+        counts, ntt_bodies = dict(K.launch_counts), dict(K.ntt_level_body_counts)
+        mul_bodies = dict(K.mont_mul_body_counts)
+        log(f"{label}: {run} batch {walls[run]:.3f} s for {lanes_b} proofs "
+            f"(stage walls: {prover.last_timings.to_json()})")
+    log(f"{label}: peak device memory cold {peaks['cold'] / 2**30:.3f} GiB, warm "
+        f"{peaks['warm'] / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); one warm prove "
+        f"{single['wall']:.3f} s")
+    blobs = [serialize_proof(p, F_STARK) for p in proofs]
+    if blobs[0] != single["proof"]:
+        raise AssertionError(f"{label}: lane 0 differs from phase 5's proof")
+    if blobs[1] != lane1_single:
+        raise AssertionError(f"{label}: lane 1 differs from its sequential prove")
+    verifier = Verifier(single["props"], lde_factor=16)
+    if not verifier.verify(proofs[0]):
+        raise AssertionError(f"{label}: the verifier rejects lane 0")
+    if not rejected(verifier, proofs[1]):
+        raise AssertionError(f"{label}: the verifier accepts lane 1 (another start)")
+    log(f"{label}: lane 0 equals phase 5's proof ({len(blobs[0])} bytes), lane 1 its sequential "
+        "prove; lane 0 accepted, lane 1 rejected")
+    log(f"{label}: launches per kernel, warm batch vs warm single prove: " + ", ".join(
+        f"{k} {counts[k]} vs {single['counts'][k]}" for k in K.KERNELS))
+    log(f"{label}: mont_mul launches by body, warm batch {json.dumps(mul_bodies)} vs warm single "
+        f"{json.dumps(single['mont_mul_bodies'])}")
+    log(f"{label}: ntt_level launches by body {json.dumps(ntt_bodies)}")
+    for name in ("fri_fold", "blake2s"):
+        if counts[name] != single["counts"][name]:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} times, one prove "
+                                 f"{single['counts'][name]}")
+    times = [k for k in K.KERNELS if single["counts"][k] and
+             counts[k] >= lanes_b * single["counts"][k]]
+    if times:
+        raise AssertionError(f"{label}: {times} launched B times as often as in one prove")
+    if ntt_bodies["mma"] == 0:
+        raise AssertionError(f"{label}: the tensor-core body of ntt_level did not run")
+    # the body of G's and DEEP's products by a per-lane challenge (B, 1, L)
+    # at this size: G's constraint values (B, D, L) and DEEP's (B, N_f, L)
+    n16 = F_STARK.n16
+    challenge = torch.zeros((lanes_b, 1, n16), dtype=torch.int32, device=dev)
+    for what, rows in (("G", 2 << LOG_ROWS), ("DEEP", 16 << LOG_ROWS)):
+        values = torch.empty((lanes_b, rows, n16), dtype=torch.int32, device=dev)
+        log(f"{label}: {what} product ({lanes_b}, {rows}, {n16}) x ({lanes_b}, 1, {n16}) takes "
+            f"the {K.mont_mul_body(values, challenge)!r} body of mont_mul")
+        del values
+    require_launched(label, counts, MAIN_PATH_KERNELS)
+    return counts
+
+
+def phase_batch_small(dev, log_rows: int, lanes_b: int = 4):
+    """Phase 8b: B distinct lanes at 2^log_rows rows, each byte-equal to
+    its sequential prove; the warm batch's wall per proof beside a warm
+    single prove. Returns the warm batch's launch counts."""
+    import torch
+
+    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+
+    label = f"batch 2^{log_rows} B={lanes_b}"
+    starts = [(1, 2), (3, 5), (2, 9), (7, 11)][:lanes_b]
+    arps = [VDF(F_STARK, c0, c1, (1 << log_rows) - 1).into_arp() for c0, c1 in starts]
+    witnesses = [w for w, _ in arps]
+    prover = Prover(arps[0][1].clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev)
+    singles, single_walls = [], []
+    for w in [witnesses[0]] + witnesses:  # the first prove warms the prover up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = serialize_proof(prover.prove(w), F_STARK)
+        single_walls.append(time.perf_counter() - t0)
+        singles.append(blob)
+    singles = singles[1:]
+    if len(set(singles)) != lanes_b:
+        raise AssertionError(f"{label}: the lanes' proofs are not distinct")
+    walls = {}
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        proofs = prover.prove_batch(witnesses)
+        walls[run] = time.perf_counter() - t0
+        counts = dict(K.launch_counts)
+        log(f"{label}: {run} batch {walls[run]:.3f} s (stage walls: "
+            f"{prover.last_timings.to_json()})")
+    if [serialize_proof(p, F_STARK) for p in proofs] != singles:
+        raise AssertionError(f"{label}: a lane differs from its sequential prove")
+    warm_single = min(single_walls[1:])
+    log(f"{label}: every lane equals its sequential prove; warm batch {walls['warm'] / lanes_b:.4f} "
+        f"s per proof, warm single prove {warm_single:.4f} s "
+        f"(ratio {warm_single / (walls['warm'] / lanes_b):.2f})")
+    log(f"{label}: launches of the warm batch {json.dumps(counts)}")
+    require_launched(label, counts, MAIN_PATH_KERNELS)
+    return counts
+
+
+def phase_support(dev, log_rows: int) -> None:
+    """Phase 9: checkpoint/resume, from_config and the host Blake2s library
+    at 2^log_rows rows."""
+    import shutil
+    import tempfile
+
+    from hodor_tpu_torch.checkpoint import STAGES, ProveCheckpoint
+    from hodor_tpu_torch.config import ProofSystemConfig
+    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.merkle.tree import MerkleTree
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.utils import native
+
+    label = f"support 2^{log_rows}"
+    witness, props = VDF(F_STARK, 1, 2, (1 << log_rows) - 1).into_arp()
+    prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev)
+    baseline = serialize_proof(prover.prove(witness), F_STARK)
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        full = os.path.join(tmp, "full")
+        t0 = time.perf_counter()
+        if serialize_proof(prover.prove(witness, checkpoint_dir=full), F_STARK) != baseline:
+            raise AssertionError(f"{label}: the checkpointed prove differs")
+        saved = time.perf_counter() - t0
+        walls = []
+        for keep in range(1, len(STAGES) + 1):
+            ckdir = os.path.join(tmp, f"keep{keep}")
+            shutil.copytree(full, ckdir)
+            for stage in STAGES[keep:]:
+                for path in ProveCheckpoint(ckdir)._paths(stage):
+                    os.remove(path)
+            t0 = time.perf_counter()
+            blob = serialize_proof(prover.prove(witness, checkpoint_dir=ckdir), F_STARK)
+            walls.append(time.perf_counter() - t0)
+            resumed = sum(r.name.endswith("(resumed)") for r in prover.last_timings.records)
+            if blob != baseline or resumed != keep:
+                raise AssertionError(f"{label}: the resume after {STAGES[keep - 1]} differs "
+                                     f"({resumed} stages resumed)")
+    log(f"{label}: checkpointed prove {saved:.3f} s; resumes after " + ", ".join(
+        f"{s} {w:.3f} s" for s, w in zip(STAGES, walls)) + ": all byte-equal to a plain prove")
+    by_config = Prover.from_config(props.clone(), ProofSystemConfig(), device=dev)
+    if serialize_proof(by_config.prove(witness), F_STARK) != baseline:
+        raise AssertionError(f"{label}: from_config gives other proof bytes")
+    log(f"{label}: Prover.from_config(ProofSystemConfig()) byte-equal")
+    # the host library's tree against the device tree over 2^log_rows leaves
+    ops = prover.ops
+    values = ops.encode([pow(5, i, F_STARK.p) for i in range(1 << log_rows)])
+    tree = MerkleTree.create(values, F_STARK)
+    leaves = b"".join(F_STARK.raw_repr_le(int(v)).ljust(32, b"\x00")
+                      for v in ops.decode(values))
+    t0 = time.perf_counter()
+    _, nodes = native.build_tree(leaves, 1 << log_rows)
+    host_s = time.perf_counter() - t0
+    if nodes[32:64] != tree.get_root():
+        raise AssertionError(f"{label}: the host library's root differs from the device tree's")
+    log(f"{label}: host Blake2s library tree over 2^{log_rows} leaves {host_s:.3f} s, root equal "
+        "to the device tree's")
+
+
 def main() -> int:
     import torch
 
@@ -667,16 +908,23 @@ def main() -> int:
     records = phase_kernels(dev)
     phase_goldens(dev)
     rows = (1 << LOG_ROWS) - 1
-    main_counts, main_bodies = phase_at_size(dev, "main path, quadratic VDF",
-                                             VDF(F_STARK, 1, 2, rows))
+    main_counts, main_bodies, main_warm = phase_at_size(dev, "main path, quadratic VDF",
+                                                        VDF(F_STARK, 1, 2, rows))
     paths = {"quadratic VDF 2^20 (main path)": main_counts}
     log(f"main path: mont_mul launches of set-up + cold prove + verify {main_counts['mont_mul']} "
         "(a static power, inv_fermat among them, is one launch)")
+    # phase 8 reuses phase 5's prover, then lets it go, so that no later
+    # peak counts its tables
+    paths[f"quadratic VDF 2^{LOG_ROWS} prove_batch B=2 (warm)"] = phase_batch(dev, main_warm)
+    del main_warm
     phase_witness_forms(dev)
-    paths["cubic VDF 2^20"], _ = phase_at_size(dev, "cubic VDF", CubicVDF(F_STARK, 1, 1, rows))
+    paths["cubic VDF 2^20"] = phase_at_size(dev, "cubic VDF", CubicVDF(F_STARK, 1, 1, rows))[0]
     form_counts, fused_bodies = phase_level_forms(dev)
     for impl, counts in form_counts.items():
         paths[f"quadratic VDF 2^{LOG_ROWS_LEVEL_FORMS}, level form {impl}"] = counts
+    paths[f"quadratic VDF 2^{LOG_ROWS_BATCH_SMALL} prove_batch B=4 (warm)"] = \
+        phase_batch_small(dev, LOG_ROWS_BATCH_SMALL)
+    phase_support(dev, LOG_ROWS_LEVEL_FORMS)
     never = [k for k in K.KERNELS if not any(c[k] for c in paths.values())]
     if never:
         raise AssertionError(f"kernels no path launched: {never}")

@@ -33,7 +33,7 @@ from ..arp import ARPInstance
 from ..domain import Domain
 from ..errors import DivisionByZeroError
 from ..field.field import Field
-from ..field.limbs import LimbOps
+from ..field.limbs import LimbOps, fetch_together
 from ..ntt import distribute_powers, evaluate_at, icoset_ntt, lde
 from ..transcript import Blake2sTranscript
 
@@ -193,6 +193,40 @@ class ALIInstance:
         Draws challenges from the transcript exactly like the reference."""
         constraint_ch, boundary_ch = self.draw_g_challenges(transcript)
         ops = self.ops
+        return self._g_poly(
+            witness_coeffs,
+            ops.encode([a for a, _ in constraint_ch]), ops.encode([b for _, b in constraint_ch]),
+            ops.encode([a for a, _ in boundary_ch]), ops.encode([b for _, b in boundary_ch]))
+
+    def calculate_g_batch(self, transcripts, witness_coeffs_b):
+        """Batched calculate_g (hodor_tpu/ali/instance.py calculate_g_batch):
+        witness_coeffs_b (B, R, T, L), one transcript per proof, each drawing
+        its challenges in the reference order. Returns (B, D, L). Every
+        product and sum covers all lanes in one launch; the divisors, the
+        coset values and the adjustment tables are shared by the lanes."""
+        ops = self.ops
+        ch = [self.draw_g_challenges(t) for t in transcripts]
+
+        def rows(which, k):
+            # (rows, B, L): row i holds alpha (k = 0) or beta (k = 1) of
+            # constraint i (which = 0) or boundary constraint i (which = 1)
+            # in every lane
+            return ops.encode([[lane[which][i][k] for lane in ch]
+                               for i in range(len(ch[0][which]))])
+
+        return self._g_poly(witness_coeffs_b, rows(0, 0), rows(0, 1), rows(1, 0), rows(1, 1))
+
+    @staticmethod
+    def _lane_scalar(t):
+        """A challenge row as an operand against (..., D, L) values: (L,)
+        for one proof, (B, 1, L) for a batch, broadcast over D."""
+        return t if t.dim() == 1 else t[:, None, :]
+
+    def _g_poly(self, witness_coeffs, c_alphas, c_betas, b_alphas, b_betas):
+        """G's coefficients from the witness polys (R, T, L), or (B, R, T, L)
+        with lanes, and the challenges: per constraint (C, L) or (C, B, L),
+        per boundary constraint (nb, L) or (nb, B, L)."""
+        ops = self.ops
         field = self.field
         d_size = self.constraints_domain.size
         L = ops.n16
@@ -202,12 +236,12 @@ class ALIInstance:
         #    distributed (src/ali/per_register/mod.rs:276-290)
         masked = []
         for m in self.all_masks:
-            f = witness_coeffs[m.register_index]
+            f = witness_coeffs[..., m.register_index, :, :]
             masked.append(f if m.mask == 1 else distribute_powers(ops, f, ops.const(m.mask)))
         # 2. batched coset-LDE of every distinct (mask, power) term
         #    (the memoized evaluate_univariate_term_into_values, :356-421)
         bases = torch.stack([masked[mi] for (mi, _pw) in self.term_ldes], dim=0)
-        base_ldes = lde(ops, bases, power_hint, coset=True)  # (K, D, L)
+        base_ldes = lde(ops, bases, power_hint, coset=True)  # (K, [B,] D, L)
         term_vals = [ops.pow_static(base_ldes[k], pw)
                      for k, (_mi, pw) in enumerate(self.term_ldes)]
 
@@ -224,9 +258,9 @@ class ALIInstance:
         for key, batch in self.batches.items():
             batch_values = ops.zero_m.expand(d_size, L)
             for c in batch:
-                alpha_int, beta_int = constraint_ch[ci]
+                alpha = self._lane_scalar(c_alphas[ci])
+                beta = self._lane_scalar(c_betas[ci])
                 ci += 1
-                alpha = ops.const(alpha_int)
                 cvals = ops.const(c.constant_term % field.p).expand(d_size, L)
                 for t in c.terms:
                     unis = [t] if isinstance(t, UnivariateTerm) else t.terms
@@ -242,7 +276,7 @@ class ALIInstance:
                     cvals = ops.mul(cvals, alpha)
                 else:
                     # alpha * x^adj + beta over the coset (:292-308)
-                    factor = ops.add(ops.mul(adj_table(adjustment), alpha), ops.const(beta_int))
+                    factor = ops.add(ops.mul(adj_table(adjustment), alpha), beta)
                     cvals = ops.mul(cvals, factor)
                 batch_values = ops.add(batch_values, cvals)
             batch_values = ops.mul(batch_values, self.constraint_divisors[key])
@@ -252,27 +286,47 @@ class ALIInstance:
         # shifted register polys, one adjustment/divisor pass
         bcs = self.properties.boundary_constraints
         if bcs:
-            wstack = torch.stack([witness_coeffs[bc.register.index] for bc in bcs])
-            bvals = ops.encode([bc.value % field.p for bc in bcs])  # (B, L)
-            wstack[:, 0] = ops.sub(wstack[:, 0], bvals)
-            cvals = lde(ops, wstack, power_hint, coset=True)  # (B, D, L)
-            b_alphas = ops.encode([a for a, _ in boundary_ch])
-            b_betas = ops.encode([b for _, b in boundary_ch])
+            nb = len(bcs)
+            lane_dims = (1,) * (witness_coeffs.dim() - 3)  # () or (1,) for a batch
+            wstack = torch.stack([witness_coeffs[..., bc.register.index, :, :] for bc in bcs])
+            bvals = ops.encode([bc.value % field.p for bc in bcs])  # (nb, L)
+            wstack[..., 0, :] = ops.sub(wstack[..., 0, :], bvals.reshape((nb,) + lane_dims + (L,)))
+            cvals = lde(ops, wstack, power_hint, coset=True)  # (nb, [B,] D, L)
             adjustment = self.max_constraint_power - 1
             if adjustment == 0:
-                cvals = ops.mul(cvals, b_alphas[:, None, :])
+                cvals = ops.mul(cvals, b_alphas[..., None, :])
             else:
-                adj = ops.add(ops.mul(adj_table(adjustment)[None], b_alphas[:, None, :]),
-                              b_betas[:, None, :])
+                adj = ops.add(ops.mul(adj_table(adjustment)[None], b_alphas[..., None, :]),
+                              b_betas[..., None, :])
                 cvals = ops.mul(cvals, adj)
             bdiv = torch.stack([self.boundary_divisors[bc.at_row] for bc in bcs])
-            cvals = ops.mul(cvals, bdiv)
+            cvals = ops.mul(cvals, bdiv.reshape((nb,) + lane_dims + (d_size, L)))
             g_values = ops.add(g_values, ops.sum_reduce(cvals, axis=0))
 
         # G interpolant (:526)
         return icoset_ntt(ops, g_values)
 
     # ---------------------------------------------------------------- DEEP
+
+    def _draw_deep(self, transcript: Blake2sTranscript, n_f: int, n_g: int):
+        """z and the mask alphas of one proof, in the reference order, and
+        the divisor points m*z. The reference's batch_inversion returns Err
+        when a divisor point falls in the evaluation domain (deep.rs:57-72,
+        :129-146); an exact host check keeps a poisoned batch inverse out
+        of DEEP."""
+        field = self.field
+        z = transcript.get_challenge()
+        # the reference draws each alpha after its mask's evaluation but
+        # with no commits in between, so all of them depend only on z
+        # (deep.rs:78)
+        alphas = [transcript.get_challenge() for _ in self.all_masks]
+        roots = [field.mul(m.mask, z) for m in self.all_masks]
+        for root in roots:
+            if field.pow(root, n_f) == 1:
+                raise DivisionByZeroError("mask*z lies in the f-LDE domain")
+        if field.pow(z, n_g) == 1:
+            raise DivisionByZeroError("z lies in the g-LDE domain")
+        return z, alphas, roots
 
     def calculate_deep(self, witness_coeffs, f_ldes, g_poly, g_lde,
                        transcript: Blake2sTranscript):
@@ -282,56 +336,62 @@ class ALIInstance:
         witness_coeffs (R, T, L), f_ldes (R, N_f, L), g_poly (D, L),
         g_lde (N_g, L)."""
         ops = self.ops
-        field = self.field
-        z = transcript.get_challenge()
-        # the reference draws each alpha after its mask's evaluation but
-        # with no commits in between, so all of them depend only on z
-        # (deep.rs:78)
-        alphas = [transcript.get_challenge() for _ in self.all_masks]
-        roots = [field.mul(m.mask, z) for m in self.all_masks]
+        z, alphas, roots = self._draw_deep(transcript, f_ldes.shape[-2], g_lde.shape[-2])
+        return self._deep(witness_coeffs, f_ldes, g_poly, g_lde, ops.const(z),
+                          ops.encode(alphas), ops.encode(roots))
+
+    def calculate_deep_batch(self, witness_coeffs_b, f_ldes_b, g_poly_b, g_lde_b, transcripts):
+        """Batched calculate_deep (hodor_tpu/ali/instance.py
+        calculate_deep_batch): a leading lane axis B on every array, one
+        transcript per proof; z, the alphas and the divisor points are per
+        lane, DivisionByZeroError is raised for the first lane that hits
+        it. Returns (h1 (B, N_f, L), h2 (B, N_g, L), f(mz) per lane, g(z)
+        per lane), with one host fetch for all lanes."""
+        ops = self.ops
+        drawn = [self._draw_deep(t, f_ldes_b.shape[-2], g_lde_b.shape[-2]) for t in transcripts]
+        return self._deep(witness_coeffs_b, f_ldes_b, g_poly_b, g_lde_b,
+                          ops.encode([z for z, _, _ in drawn]),
+                          ops.encode([alphas for _, alphas, _ in drawn]),
+                          ops.encode([roots for _, _, roots in drawn]))
+
+    def _deep(self, witness_coeffs, f_ldes, g_poly, g_lde, z_m, alphas_m, roots_m):
+        """DEEP on one proof or on B lanes: witness_coeffs ([B,] R, T, L),
+        f_ldes ([B,] R, N_f, L), g_poly ([B,] D, L), g_lde ([B,] N_g, L);
+        z_m ([B,] L), alphas_m and roots_m ([B,] M, L). Returns h1, h2 and
+        the decoded f(mz) and g(z) (a list per lane with lanes)."""
+        ops = self.ops
         regs = [m.register_index for m in self.all_masks]
 
-        # the reference's batch_inversion returns Err when a divisor point
-        # falls in the evaluation domain (deep.rs:57-72, :129-146); an
-        # exact host check keeps a poisoned batch inverse out of DEEP
-        n_f = f_ldes.shape[1]
-        n_g = g_lde.shape[0]
-        for root in roots:
-            if field.pow(root, n_f) == 1:
-                raise DivisionByZeroError("mask*z lies in the f-LDE domain")
-        if field.pow(z, n_g) == 1:
-            raise DivisionByZeroError("z lies in the g-LDE domain")
-
-        roots_m = ops.encode(roots)  # (M, L)
-        alphas_m = ops.encode(alphas)
-        z_m = ops.const(z)
-
         # f(m*z) per mask: batched polynomial evaluation (deep.rs:53)
-        stacked = torch.stack([witness_coeffs[r] for r in regs], dim=0)  # (M, T, L)
-        xpow = ops.powers(roots_m, stacked.shape[1])  # (M, T, L)
-        f_at_z_m = ops.sum_reduce(ops.mul(stacked, xpow), axis=1)  # (M, L)
+        stacked = torch.stack([witness_coeffs[..., r, :, :] for r in regs], dim=-3)
+        xpow = ops.powers(roots_m, stacked.shape[-2])  # ([B,] M, T, L)
+        f_at_z_m = ops.sum_reduce(ops.mul(stacked, xpow), axis=-2)  # ([B,] M, L)
+        del stacked, xpow
 
         # h1 = sum_m alpha_m * (f_lde[reg] - f(mz)) / (x - mz) on the
         # f-LDE domain (deep.rs:57-84); the domain points are plain
         # Omega^i. One mask at a time, so one mask's arrays are live.
-        xs_f = self._domain_points(n_f)
+        xs_f = self._domain_points(f_ldes.shape[-2])
         h1_lde = None
         for i, r in enumerate(regs):
-            inv_i = ops.batch_inverse(ops.sub(xs_f, roots_m[i]))
-            num_i = ops.sub(f_ldes[r], f_at_z_m[i])
-            term = ops.mul(ops.mul(num_i, alphas_m[i]), inv_i)
+            inv_i = ops.batch_inverse(ops.sub(xs_f, self._lane_scalar(roots_m[..., i, :])))
+            num_i = ops.sub(f_ldes[..., r, :, :], self._lane_scalar(f_at_z_m[..., i, :]))
+            term = ops.mul(ops.mul(num_i, self._lane_scalar(alphas_m[..., i, :])), inv_i)
             h1_lde = term if h1_lde is None else ops.add(h1_lde, term)
             del inv_i, num_i, term
 
         # h2 = (g_lde - g(z)) / (x - z) on the g-LDE domain (deep.rs:129-146)
-        g_at_z = evaluate_at(ops, g_poly, z_m)
-        den = ops.batch_inverse(ops.sub(self._domain_points(n_g), z_m))
-        h2_lde = ops.mul(ops.sub(g_lde, g_at_z), den)
+        g_at_z = evaluate_at(ops, g_poly, z_m)  # ([B,] L)
+        z_col = self._lane_scalar(z_m)
+        den = ops.batch_inverse(ops.sub(self._domain_points(g_lde.shape[-2]), z_col))
+        h2_lde = ops.mul(ops.sub(g_lde, self._lane_scalar(g_at_z)), den)
 
-        f_np = f_at_z_m.cpu()
-        g_np = g_at_z.cpu()
-        f_vals = [int(v) for v in ops.decode(f_np)]
-        return h1_lde, h2_lde, f_vals, int(ops.decode(g_np))
+        # one fetch for every lane's f(mz) and g(z)
+        f_host, g_host = map(ops.decode, fetch_together([f_at_z_m, g_at_z]))
+        if g_at_z.dim() == 1:
+            return h1_lde, h2_lde, [int(v) for v in f_host], int(g_host)
+        return (h1_lde, h2_lde, [[int(v) for v in lane] for lane in f_host],
+                [int(v) for v in g_host])
 
     def _domain_points(self, n: int):
         """[1, w, w^2, ...] over the size-n domain, built once per LimbOps."""

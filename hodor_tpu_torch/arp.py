@@ -104,10 +104,11 @@ class ARPInstance:
         ]
 
     def calculate_witness_polys(self, witness_device):
-        """witness_device: (R, T, L) Montgomery limbs of trace values ->
-        (R, T, L) coefficient forms (batched iNTT; reference
-        make_witness_polymonials, src/arp/per_register/mod.rs:13-68)."""
-        r, t, _ = witness_device.shape
+        """witness_device: (R, T, L) Montgomery limbs of trace values, or
+        (B, R, T, L) for a batch of proofs -> the coefficient forms of the
+        same shape (batched iNTT; reference make_witness_polymonials,
+        src/arp/per_register/mod.rs:13-68)."""
+        r, t = witness_device.shape[-3:-1]
         if r != self.properties.num_registers:
             raise SynthesisError("register count mismatch")
         if t != next_power_of_two(self.properties.num_rows):

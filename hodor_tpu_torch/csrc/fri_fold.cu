@@ -1,10 +1,13 @@
 // One FRI fold round in one pass:
 //   out = mont(mont(lo - hi, w), c/2) + mont(lo + hi, 1/2)   (all mod p)
-// which is ((lo + hi) + c * w * (lo - hi)) / 2 in Montgomery form.
+// which is ((lo + hi) + c * w * (lo - hi)) / 2 in Montgomery form, for
+// every lane of a batch of proofs in the same launch.
 //
 // Replaces: hodor_tpu/field/pallas_kernels.py pallas_fri_fold
-// (_fri_fold_kernel). The same association and the same canonical
-// intermediates, so the limbs equal the six-launch elementwise fold.
+// (_fri_fold_kernel), and the same kernel under jax.vmap over a batch of
+// proofs (hodor_tpu/fri/fri.py fri_chain_pair_batch). The same association
+// and the same canonical intermediates, so the limbs equal the six-launch
+// elementwise fold.
 // Bound on the H100: device-memory bytes. Three Montgomery products and
 // three modular adds are about 1,000 integer operations for 256 bytes
 // moved (lo, hi, w read, out written); the six separate launches move
@@ -12,69 +15,82 @@
 // Design: one thread per output element, everything in registers, each
 // operand read once through 16-byte loads. lo and hi are the two halves
 // of the round's values and come as row-strided views, never copied. The
-// two scalars (c/2, made on the device from the round's Merkle root, and
-// 1/2) are read by every thread from device memory, so the challenge
-// never visits the host.
+// lanes (one per proof) sit on the grid's y axis: lo, hi and out step by
+// their lane strides, w is shared by every lane (the twiddles depend only
+// on the round) and c/2 steps by its own lane stride, since every proof
+// draws its own challenge. The two scalars (c/2, made on the device from
+// the lane's Merkle root, and 1/2) are read by every thread from device
+// memory, so the challenges never visit the host.
 #include "field.cuh"
 
 namespace hodor {
 
 template <int N16>
-__global__ void fri_fold_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ lo,
-                                long long lo_stride, const int32_t* __restrict__ hi,
-                                long long hi_stride, const int32_t* __restrict__ w,
-                                long long w_stride, const int32_t* __restrict__ c_scaled,
+__global__ void fri_fold_kernel(int32_t* __restrict__ out, long long out_lane,
+                                const int32_t* __restrict__ lo, long long lo_stride,
+                                long long lo_lane, const int32_t* __restrict__ hi,
+                                long long hi_stride, long long hi_lane,
+                                const int32_t* __restrict__ w, long long w_stride,
+                                const int32_t* __restrict__ c_scaled, long long c_lane,
                                 const int32_t* __restrict__ inv2, long long half,
                                 FieldConsts fc) {
   constexpr int NW = N16 / 2;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= half) return;
+  const long long lane = blockIdx.y;
   uint32_t a[NW], b[NW], tw[NW], k[NW], s[NW], t[NW], d[NW];
-  load_words_v4<NW>(lo + i * lo_stride, a);
-  load_words_v4<NW>(hi + i * hi_stride, b);
+  load_words_v4<NW>(lo + lane * lo_lane + i * lo_stride, a);
+  load_words_v4<NW>(hi + lane * hi_lane + i * hi_stride, b);
   load_words_v4<NW>(w + i * w_stride, tw);
   // t = mont(mont(lo - hi, w), c/2)
   mod_sub<NW>(s, a, b, fc);
   mont_mul_words<NW>(t, s, tw, fc);
-  load_words_v4<NW>(c_scaled, k);
+  load_words_v4<NW>(c_scaled + lane * c_lane, k);
   mont_mul_words<NW>(s, t, k, fc);
   // d = mont(lo + hi, 1/2)
   mod_add<NW>(d, a, b, fc);
   load_words_v4<NW>(inv2, k);
   mont_mul_words<NW>(t, d, k, fc);
   mod_add<NW>(d, s, t, fc);
-  store_words_v4<NW>(out + i * N16, d);
+  store_words_v4<NW>(out + lane * out_lane + i * N16, d);
 }
 
 template <int N16>
-static int launch_fri_fold(int32_t* out, const int32_t* lo, long long lo_stride,
-                           const int32_t* hi, long long hi_stride, const int32_t* w,
-                           long long w_stride, const int32_t* c_scaled, const int32_t* inv2,
-                           long long half, const uint32_t* p_words, uint32_t pinv0,
-                           cudaStream_t stream) {
+static int launch_fri_fold(int32_t* out, long long out_lane, const int32_t* lo,
+                           long long lo_stride, long long lo_lane, const int32_t* hi,
+                           long long hi_stride, long long hi_lane, const int32_t* w,
+                           long long w_stride, const int32_t* c_scaled, long long c_lane,
+                           const int32_t* inv2, long long half, long long lanes,
+                           const uint32_t* p_words, uint32_t pinv0, cudaStream_t stream) {
   const FieldConsts fc = make_field_consts(N16 / 2, p_words, pinv0);
   const int threads = 128;
   const long long blocks = (half + threads - 1) / threads;
-  fri_fold_kernel<N16><<<(unsigned)blocks, threads, 0, stream>>>(
-      out, lo, lo_stride, hi, hi_stride, w, w_stride, c_scaled, inv2, half, fc);
+  const dim3 grid((unsigned)blocks, (unsigned)lanes);
+  fri_fold_kernel<N16><<<grid, threads, 0, stream>>>(out, out_lane, lo, lo_stride, lo_lane, hi,
+                                                     hi_stride, hi_lane, w, w_stride, c_scaled,
+                                                     c_lane, inv2, half, fc);
   return (int)cudaGetLastError();
 }
 
 }  // namespace hodor
 
-// Strides are in int32 units between consecutive elements (rows).
-extern "C" int hodor_fri_fold(int n16, int32_t* out, const int32_t* lo, long long lo_stride,
-                              const int32_t* hi, long long hi_stride, const int32_t* w,
-                              long long w_stride, const int32_t* c_scaled, const int32_t* inv2,
-                              long long half, const uint32_t* p_words, uint32_t pinv0,
-                              void* stream) {
+// Strides are in int32 units: between consecutive elements (rows) of a
+// lane, and between lanes. out is lanes x half contiguous elements.
+extern "C" int hodor_fri_fold(int n16, int32_t* out, long long out_lane, const int32_t* lo,
+                              long long lo_stride, long long lo_lane, const int32_t* hi,
+                              long long hi_stride, long long hi_lane, const int32_t* w,
+                              long long w_stride, const int32_t* c_scaled, long long c_lane,
+                              const int32_t* inv2, long long half, long long lanes,
+                              const uint32_t* p_words, uint32_t pinv0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (half < 1) return (int)cudaErrorInvalidValue;
+  if (half < 1 || lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
   if (n16 == 4)
-    return hodor::launch_fri_fold<4>(out, lo, lo_stride, hi, hi_stride, w, w_stride, c_scaled,
-                                     inv2, half, p_words, pinv0, s);
+    return hodor::launch_fri_fold<4>(out, out_lane, lo, lo_stride, lo_lane, hi, hi_stride,
+                                     hi_lane, w, w_stride, c_scaled, c_lane, inv2, half, lanes,
+                                     p_words, pinv0, s);
   if (n16 == 16)
-    return hodor::launch_fri_fold<16>(out, lo, lo_stride, hi, hi_stride, w, w_stride, c_scaled,
-                                      inv2, half, p_words, pinv0, s);
+    return hodor::launch_fri_fold<16>(out, out_lane, lo, lo_stride, lo_lane, hi, hi_stride,
+                                      hi_lane, w, w_stride, c_scaled, c_lane, inv2, half, lanes,
+                                      p_words, pinv0, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -26,6 +26,10 @@ contraction on the int8 tensor cores ("mma", csrc/byte_plane_mma.cuh) and
 the limb arithmetic on the integer pipe ("limb"); the wrapper picks one
 from the field and the radix (`ntt_level_body`), and
 `ntt_level_body_counts` counts each beside their sum in `launch_counts`.
+`mont_mul` has three bodies picked from the collapsed layout ("flat",
+"grid", "general"; `mont_mul_body`), counted in `mont_mul_body_counts`.
+`fri_fold` takes an optional leading lane axis, one proof of a batch a
+lane with its own challenge, all lanes in one launch.
 
 Every wrapper dispatches on the device of its tensors and nothing else:
 a CPU tensor takes the plain version beside it (int64 torch ops, the
@@ -68,6 +72,8 @@ NTT_LEVEL_BODIES = ("mma", "limb")
 ntt_level_body_counts = {body: 0 for body in NTT_LEVEL_BODIES}
 DFT_REDUCE_BODIES = ("mma", "dp4a")
 dft_reduce_body_counts = {body: 0 for body in DFT_REDUCE_BODIES}
+MONT_MUL_BODIES = ("flat", "grid", "general")
+mont_mul_body_counts = {body: 0 for body in MONT_MUL_BODIES}
 
 
 def reset_launch_counts() -> None:
@@ -77,6 +83,8 @@ def reset_launch_counts() -> None:
         ntt_level_body_counts[body] = 0
     for body in DFT_REDUCE_BODIES:
         dft_reduce_body_counts[body] = 0
+    for body in MONT_MUL_BODIES:
+        mont_mul_body_counts[body] = 0
 
 
 # ------------------------------------------------------------------ build
@@ -153,7 +161,8 @@ def _bind(lib):
     lib.hodor_blake2s.argtypes = [vp, vp, i64, i32, vp, u32, vp]
     lib.hodor_ntt_level.argtypes = [i32, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
     lib.hodor_ntt_level_mma.argtypes = lib.hodor_ntt_level.argtypes
-    lib.hodor_fri_fold.argtypes = [i32, vp, vp, i64, vp, i64, vp, i64, vp, vp, i64, vp, u32, vp]
+    lib.hodor_fri_fold.argtypes = [i32, vp, i64, vp, i64, i64, vp, i64, i64, vp, i64, vp, i64, vp,
+                                   i64, i64, vp, u32, vp]
     lib.hodor_wide_reduce.argtypes = [i32, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
     lib.hodor_dft_reduce.argtypes = [i32, vp, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp,
                                      i32, vp]
@@ -399,6 +408,23 @@ def _out_tensor(out, shape, like):
     return out
 
 
+def mont_mul_body(a, b) -> str:
+    """The body of mont_mul.cu that a product of a and b launches, from
+    the collapsed layout as its launcher picks it: "flat" (one element
+    dim), "grid" (outer two dims on the grid, inner at least a warp wide)
+    or "general" (element_at division)."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    return _mont_mul_body(_launch_geometry(a, b, shape)[2])
+
+
+def _mont_mul_body(dims) -> str:
+    if dims[0] == 1 and dims[1] == 1:
+        return "flat"
+    if dims[0] <= 65535 and dims[1] <= 65535 and dims[2] >= 32:
+        return "grid"
+    return "general"
+
+
 def mont_mul(field: Field, a, b, out=None):
     """Elementwise Montgomery product a*b*R^-1 mod p of (..., n16) limbs
     (broadcasting). CPU: plain version. CUDA: the mont_mul kernel."""
@@ -423,6 +449,7 @@ def mont_mul(field: Field, a, b, out=None):
     )
     _check(code, "mont_mul")
     launch_counts["mont_mul"] += 1
+    mont_mul_body_counts[_mont_mul_body(dims)] += 1
     return out
 
 
@@ -774,7 +801,11 @@ def ntt_level(field: Field, x, w, tw=None, w_planes=None, body=None):
 def fri_fold_plain(field: Field, lo, hi, w, c_scaled, inv2):
     """mont(mont(lo - hi, w), c_scaled) + mont(lo + hi, inv2) on the plain
     add, sub and mul: with c_scaled = c/2 and inv2 = 1/2 this is the fold
-    ((lo + hi) + c * w * (lo - hi)) / 2."""
+    ((lo + hi) + c * w * (lo - hi)) / 2. With a lane axis, lo and hi are
+    (B, half, n16), w (half, n16) is shared and c_scaled (B, n16) holds one
+    challenge per lane."""
+    if c_scaled.dim() == 2:
+        c_scaled = c_scaled[:, None, :]
     odd = mont_mul_plain(field, mont_mul_plain(field, addsub_plain(field, lo, hi, "sub"), w),
                          c_scaled)
     even = mont_mul_plain(field, addsub_plain(field, lo, hi, "add"), inv2)
@@ -782,26 +813,43 @@ def fri_fold_plain(field: Field, lo, hi, w, c_scaled, inv2):
 
 
 def _row_stride(t, name: str) -> int:
-    """Row stride (int32 units) of a (rows, n16) operand the kernels read
-    through 16-byte loads."""
-    if t.stride(1) != 1 or t.stride(0) % 4 or t.data_ptr() % 16:
+    """Row stride (int32 units) of a (..., rows, n16) operand the kernels
+    read through 16-byte loads."""
+    if t.stride(-1) != 1 or t.stride(-2) % 4 or t.data_ptr() % 16:
         raise ValueError(f"{name}: rows must be unit-stride limbs at 16-byte aligned addresses")
+    return t.stride(-2)
+
+
+def _lane_stride(t, lanes, name: str) -> int:
+    """Lane stride (int32 units) of a (B, ..., n16) operand; 0 without lanes."""
+    if lanes is None:
+        return 0
+    if t.stride(0) % 4:
+        raise ValueError(f"{name}: lanes must lie at 16-byte aligned addresses")
     return t.stride(0)
 
 
 def fri_fold(field: Field, lo, hi, w, c_scaled, inv2, out=None):
     """One FRI fold round, fused: mont(mont(lo - hi, w), c_scaled) +
-    mont(lo + hi, inv2). lo, hi, w: (half, n16), row-strided views allowed
-    (the two halves of the round's values are read in place); c_scaled
-    (the round's challenge times 1/2) and inv2 (1/2): (n16,) Montgomery
-    scalars on the same device. CPU: plain version. CUDA: the fri_fold
-    kernel."""
+    mont(lo + hi, inv2), for one proof or for a batch of them in one
+    launch. lo, hi: (half, n16), or (B, half, n16) with one lane per proof;
+    row- and lane-strided views allowed (the two halves of the round's
+    values are read in place). w: (half, n16), shared by all lanes.
+    c_scaled (the round's challenge times 1/2): (n16,), or (B, n16) with a
+    lane axis; inv2 (1/2): (n16,). Montgomery limbs on one device. CPU:
+    plain version. CUDA: the fri_fold kernel."""
     _check_limbs(field, lo, hi, w, c_scaled, inv2)
-    if lo.dim() != 2 or lo.shape != hi.shape or lo.shape != w.shape:
-        raise ValueError(f"lo, hi, w must share one (half, n16) shape, got {tuple(lo.shape)}, "
-                         f"{tuple(hi.shape)}, {tuple(w.shape)}")
-    if c_scaled.dim() != 1 or inv2.dim() != 1 or c_scaled.stride(0) != 1 or inv2.stride(0) != 1:
-        raise ValueError("c_scaled and inv2 must be contiguous (n16,) scalars")
+    lanes = lo.shape[0] if lo.dim() == 3 else None
+    if lo.dim() not in (2, 3) or lo.shape != hi.shape or lo.shape[-2:] != w.shape:
+        raise ValueError(f"lo, hi must share one (half, n16) or (B, half, n16) shape and w be "
+                         f"(half, n16), got {tuple(lo.shape)}, {tuple(hi.shape)}, "
+                         f"{tuple(w.shape)}")
+    c_shape = (field.n16,) if lanes is None else (lanes, field.n16)
+    if tuple(c_scaled.shape) != c_shape or c_scaled.stride(-1) != 1:
+        raise ValueError(f"c_scaled must be unit-stride {c_shape} limbs, got "
+                         f"{tuple(c_scaled.shape)}")
+    if inv2.dim() != 1 or inv2.stride(0) != 1:
+        raise ValueError("inv2 must be a contiguous (n16,) scalar")
     if lo.device.type == "cpu":
         res = fri_fold_plain(field, lo, hi, w, c_scaled, inv2)
         if out is None:
@@ -811,15 +859,18 @@ def fri_fold(field: Field, lo, hi, w, c_scaled, inv2, out=None):
     if lo.device.type != "cuda":
         raise ValueError(f"unsupported device {lo.device}")
     out = _out_tensor(out, lo.shape, lo)
-    half = lo.shape[0]
-    if half == 0:
+    half = lo.shape[-2]
+    if half == 0 or out.numel() == 0:
         return out
     n = field.n16
+    if c_scaled.data_ptr() % 16:
+        raise ValueError("c_scaled must lie at a 16-byte aligned address")
     code = _kernels().hodor_fri_fold(
-        n, out.data_ptr(), lo.data_ptr(), _row_stride(lo, "lo"), hi.data_ptr(),
-        _row_stride(hi, "hi"), w.data_ptr(), _row_stride(w, "w"),
-        c_scaled.data_ptr(), inv2.data_ptr(), half,
-        *_field_args(field)[:2], _stream(),
+        n, out.data_ptr(), half * n, lo.data_ptr(), _row_stride(lo, "lo"),
+        _lane_stride(lo, lanes, "lo"), hi.data_ptr(), _row_stride(hi, "hi"),
+        _lane_stride(hi, lanes, "hi"), w.data_ptr(), _row_stride(w, "w"), c_scaled.data_ptr(),
+        _lane_stride(c_scaled, lanes, "c_scaled"),
+        inv2.data_ptr(), half, 1 if lanes is None else lanes, *_field_args(field)[:2], _stream(),
     )
     _check(code, "fri_fold")
     launch_counts["fri_fold"] += 1

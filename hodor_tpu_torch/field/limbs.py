@@ -93,6 +93,17 @@ def from_numpy_limbs(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr.astype(np.int32))).to(device)
 
 
+def fetch_together(tensors):
+    """Several device tensors of one dtype brought to the host in one
+    device-to-host copy; returns the host tensors in their shapes."""
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu()
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
+
+
 def to_numpy_limbs(t: torch.Tensor) -> np.ndarray:
     """The port's int32 limb tensor -> a JAX-layout uint32 numpy array."""
     return t.detach().cpu().numpy().astype(np.uint32)
@@ -281,26 +292,29 @@ class LimbOps:
         return kernels.mont_pow(self.field, x.contiguous(), self.field.p - 2)
 
     def batch_inverse(self, arr):
-        """Elementwise inverse of (N, n16) via a product tree: pairwise
-        products up (i with i + m/2), one Fermat inverse of the root, and
-        the inverses distributed back down. A zero element yields garbage:
-        callers keep zeros out (DEEP checks its divisor points on the host)."""
-        n = arr.shape[0]
+        """Elementwise inverse of (..., N, n16) via a product tree along
+        axis -2, for every leading index at once: pairwise products up (i
+        with i + m/2), one Fermat inverse of the roots, and the inverses
+        distributed back down. A zero element yields garbage: callers keep
+        zeros out (DEEP checks its divisor points on the host, Polynomial
+        checks its values)."""
+        n = arr.shape[-2]
         if n == 1:
-            return self.inv_fermat(arr[0])[None, :]
-        n_pad = 1 if n <= 1 else 1 << (n - 1).bit_length()
+            return self.inv_fermat(arr)
+        n_pad = 1 << (n - 1).bit_length()
         work = arr
         if n_pad != n:
-            work = torch.cat([arr, self.one_m.expand(n_pad - n, self.n16)], dim=0)
+            ones = self.one_m.expand(arr.shape[:-2] + (n_pad - n, self.n16))
+            work = torch.cat([arr, ones], dim=-2)
         levels = [work]
         cur = work
-        while cur.shape[0] > 1:
-            half = cur.shape[0] // 2
-            cur = self.mul(cur[:half], cur[half:])
+        while cur.shape[-2] > 1:
+            half = cur.shape[-2] // 2
+            cur = self.mul(cur[..., :half, :], cur[..., half:, :])
             levels.append(cur)
-        inv = self.inv_fermat(cur[0])[None, :]
+        inv = self.inv_fermat(cur)
         for lvl in reversed(levels[:-1]):
-            half = lvl.shape[0] // 2
-            a, b = lvl[:half], lvl[half:]
-            inv = torch.cat([self.mul(inv, b), self.mul(inv, a)], dim=0)
-        return inv[:n]
+            half = lvl.shape[-2] // 2
+            a, b = lvl[..., :half, :], lvl[..., half:, :]
+            inv = torch.cat([self.mul(inv, b), self.mul(inv, a)], dim=-2)
+        return inv[..., :n, :]

@@ -11,6 +11,11 @@ the fused fri_fold kernel (field/kernels.py), one pass over lo, hi and
 the twiddles; the challenge comes from each root on the device
 (digest_to_challenge_mont) and stays there, since FRI fold challenges
 never touch the transcript.
+
+The ladder also runs for a batch of proofs at once (Prover.prove_batch,
+the port of hodor_tpu/fri/fri.py fri_chain_pair_batch): the values carry
+a leading lane axis, (B, N, L), and each round is one batched tree, one
+(B, L) vector of challenges and one fold launch for all lanes.
 """
 
 from __future__ import annotations
@@ -29,9 +34,10 @@ from ..domain import (
 from ..errors import InvalidValueError
 from ..field import kernels
 from ..field.field import Field
-from ..field.limbs import LimbOps
+from ..field.limbs import LimbOps, fetch_together
 from ..merkle.blake2s import digest_to_challenge_mont
-from ..merkle.tree import IopQuery, MerkleTree, digest_to_bytes, fetch_roots, verify_path
+from ..merkle.tree import (IopQuery, MerkleTree, digest_to_bytes, fetch_roots, take_rows,
+                           verify_path)
 from ..ntt import intt, lde
 
 
@@ -76,25 +82,29 @@ class FRIProof:
 
 
 def fold_round(ops: LimbOps, values, challenge_limbs, stride: int, log_domain: int):
-    """One FRI fold (src/fri/fri_on_values.rs:70-105). values: (K, L);
-    challenge_limbs: (L,) Montgomery; the round's twiddles
-    w_j = W^(-j*stride), W the generator of the 2^log_domain l0 domain.
-    The two halves of `values` are read in place, and the fold is the
-    kernel's association mont(mont(lo-hi, w), c/2) + mont(lo+hi, 1/2):
-    the same canonical limbs as (lo+hi + c*w*(lo-hi))/2 in any order."""
-    half = values.shape[0] // 2
+    """One FRI fold (src/fri/fri_on_values.rs:70-105). values: (K, L), or
+    (B, K, L) for a batch; challenge_limbs: (L,) Montgomery, or (B, L) one
+    per lane; the round's twiddles w_j = W^(-j*stride), W the generator of
+    the 2^log_domain l0 domain, shared by the lanes. The two halves of
+    `values` are read in place, and the fold is the kernel's association
+    mont(mont(lo-hi, w), c/2) + mont(lo+hi, 1/2): the same canonical limbs
+    as (lo+hi + c*w*(lo-hi))/2 in any order."""
+    half = values.shape[-2] // 2
     dom = Domain.new_for_size(ops.field, 1 << log_domain)
     w = ops.powers(ops.const(pow(dom.generator_inv, stride, ops.field.p)), half)
     c_scaled = ops.mul(challenge_limbs, ops.two_inv_m)
-    return kernels.fri_fold(ops.field, values[:half], values[half:2 * half], w, c_scaled,
-                            ops.two_inv_m)
+    return kernels.fri_fold(ops.field, values[..., :half, :], values[..., half:2 * half, :], w,
+                            c_scaled, ops.two_inv_m)
 
 
 def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int):
     """The FRI prover ladder: commit l0, then per round fold -> tree ->
     root -> next challenge, the root -> challenge step on the device.
+    lde_values (N, L), or (B, N, L): every lane's round in one tree build
+    and one fold launch.
 
-    Returns (trees, intermediate values, final coefficients (K, L))."""
+    Returns (trees, intermediate values, final coefficients (K, L) or
+    (B, K, L))."""
     trees = [MerkleTree.create(lde_values, ops.field)]
     challenge = digest_to_challenge_mont(ops, trees[0].root_digest())
     values = lde_values
@@ -111,12 +121,36 @@ def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int):
 def gather_chain_queries(chain_data, idx_arrays):
     """Every round's query values and full Merkle paths. chain_data: list
     of (tree, committed values); idx_arrays: list of (Q,) int64 index
-    tensors. Returns per round (values (Q, L), siblings (depth, Q, 8)),
-    on the host."""
+    tensors, or (B, Q) for a tree and values with B lanes. Returns per
+    round (values (Q, L), siblings (depth, Q, 8)), or (B, Q, L) and
+    (depth, B, Q, 8) with lanes, on the host, in one device-to-host copy."""
     out = []
     for (tree, vals), idx in zip(chain_data, idx_arrays):
-        out.append((vals[idx], tree.path_digests(idx)))
-    return [(v.cpu(), s.cpu()) for v, s in out]
+        out.extend((take_rows(vals, idx), tree.path_digests(idx)))
+    if not out:
+        return []
+    host = fetch_together(out)
+    return list(zip(host[0::2], host[1::2]))
+
+
+def run_ladders(ops: LimbOps, ldes, lde_factor: int, output_coeffs_at_degree_plus_one: int):
+    """The ladders of several LDEs (each (N, L), or (B, N, L) with lanes)
+    back to back, then one host fetch of every root and one of every
+    final coefficient vector. Returns per LDE (initial degree + 1, trees,
+    intermediate values, final coefficients on the host)."""
+    if output_coeffs_at_degree_plus_one & (output_coeffs_at_degree_plus_one - 1):
+        raise ValueError("output degree + 1 must be a power of two")
+    if lde_factor & (lde_factor - 1):
+        raise ValueError("lde factor must be a power of two")
+    chains = []
+    for lde_values in ldes:
+        n = lde_values.shape[-2]
+        idpo = n // lde_factor
+        steps = log2_floor(idpo // output_coeffs_at_degree_plus_one)
+        chains.append((idpo,) + fri_chain(ops, lde_values, steps, log2_floor(n)))
+    fetch_roots([tree for chain in chains for tree in chain[1]])
+    final = fetch_together([chain[3] for chain in chains])
+    return [(idpo, trees, inter, fc) for (idpo, trees, inter, _), fc in zip(chains, final)]
 
 
 class NaiveFriIop:
@@ -139,28 +173,39 @@ class NaiveFriIop:
         """FRI prototypes for several polynomials (the prover's h1, h2):
         the ladders run back to back, then one host fetch brings every
         root."""
-        if output_coeffs_at_degree_plus_one & (output_coeffs_at_degree_plus_one - 1):
-            raise ValueError("output degree + 1 must be a power of two")
-        if lde_factor & (lde_factor - 1):
-            raise ValueError("lde factor must be a power of two")
-        chains = []
-        for lde_values in ldes:
-            n = lde_values.shape[0]
-            idpo = n // lde_factor
-            steps = log2_floor(idpo // output_coeffs_at_degree_plus_one)
-            chains.append((idpo,) + fri_chain(ops, lde_values, steps, log2_floor(n)))
-        fetch_roots([tree for chain in chains for tree in chain[1]])
         return [
             NaiveFriIop._assemble_prototype(
                 ops, trees, inter, fc, idpo, output_coeffs_at_degree_plus_one, lde_factor)
-            for idpo, trees, inter, fc in chains
+            for idpo, trees, inter, fc in run_ladders(
+                ops, ldes, lde_factor, output_coeffs_at_degree_plus_one)
         ]
+
+    @staticmethod
+    def proofs_from_lde_batches(ops: LimbOps, ldes, lde_factor: int,
+                                output_coeffs_at_degree_plus_one: int):
+        """The batched form of `proofs_from_ldes` (the port of
+        hodor_tpu/fri/fri.py fri_chain_pair_batch): ldes each (B, N, L),
+        one ladder per LDE for all lanes. Returns per LDE (the batched
+        trees, the batched intermediate values, the B per-lane prototypes,
+        whose trees and values are views of the batched ones)."""
+        out = []
+        for idpo, trees, inter, fc in run_ladders(
+                ops, ldes, lde_factor, output_coeffs_at_degree_plus_one):
+            protos = [
+                NaiveFriIop._assemble_prototype(
+                    ops, [t.lane(b) for t in trees], [v[b] for v in inter], fc[b], idpo,
+                    output_coeffs_at_degree_plus_one, lde_factor)
+                for b in range(fc.shape[0])
+            ]
+            out.append((trees, inter, protos))
+        return out
 
     @staticmethod
     def _assemble_prototype(ops, trees, intermediate_values, final_coeffs,
                             initial_degree_plus_one, output_coeffs_at_degree_plus_one,
                             lde_factor) -> FRIProofPrototype:
-        """Host-side prototype assembly from a ladder's outputs."""
+        """Host-side prototype assembly from a ladder's outputs (one lane);
+        final_coeffs: Montgomery limbs, on the host or the device."""
         field = ops.field
         root_bytes = [tree.get_root() for tree in trees]
         # all tree challenges except the last tree's (the final fold
@@ -235,18 +280,25 @@ class NaiveFriIop:
         pair and the coset indices to open. Returns (trees, cosets,
         chain_data, idx_arrays); the gather is left to the caller so
         several polynomials' plans share one fetch."""
-        domain_size = prototype.initial_degree_plus_one * prototype.lde_factor
-        domain_idx = natural_first_element_index
         trees = [prototype.l0_commitment] + list(prototype.intermediate_commitments)
         values = [iop_values] + list(prototype.intermediate_values)
-        chain_data, idx_arrays, cosets = [], [], []
-        for tree, vals in zip(trees, values):
-            coset = coset_for_natural_index_and_size(domain_idx, domain_size)
-            cosets.append(coset)
-            chain_data.append((tree, vals))
-            idx_arrays.append(torch.tensor(coset, dtype=torch.int64, device=vals.device))
-            domain_idx, domain_size = index_and_size_for_next_domain(domain_idx, domain_size)
+        cosets = NaiveFriIop.coset_walk(prototype, natural_first_element_index)
+        chain_data = list(zip(trees, values))
+        idx_arrays = [torch.tensor(c, dtype=torch.int64, device=iop_values.device)
+                      for c in cosets]
         return trees, cosets, chain_data, idx_arrays
+
+    @staticmethod
+    def coset_walk(prototype: FRIProofPrototype, natural_first_element_index: int):
+        """The coset to open in each round of the chain, from the l0
+        domain down (src/fri/query_producer.rs:10-53)."""
+        domain_size = prototype.initial_degree_plus_one * prototype.lde_factor
+        domain_idx = natural_first_element_index
+        cosets = []
+        for _ in range(1 + len(prototype.intermediate_commitments)):
+            cosets.append(coset_for_natural_index_and_size(domain_idx, domain_size))
+            domain_idx, domain_size = index_and_size_for_next_domain(domain_idx, domain_size)
+        return cosets
 
     @staticmethod
     def proof_from_gathered(prototype: FRIProofPrototype, trees, cosets, gathered,

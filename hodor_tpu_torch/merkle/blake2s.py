@@ -89,7 +89,7 @@ def hash_block(m_words, message_bytes: int):
 
 
 def hash_leaves(leaf_words):
-    """(N, 8)-word 32-byte leaves -> (N, 8) digests (reference
+    """(..., N, 8)-word 32-byte leaves -> (..., N, 8) digests (reference
     hash_encoded_leaf, src/iop/blake2s_trivial_iop.rs:92-99)."""
     return hash_block(leaf_words, 32)
 
@@ -101,21 +101,21 @@ def hash_nodes(left, right):
 
 
 def limbs_to_leaf_words(limbs):
-    """(N, n16) Montgomery limbs -> (N, 8) int32 LE leaf words: the raw
+    """(..., N, n16) Montgomery limbs -> (..., N, 8) int32 LE leaf words: the raw
     repr bytes of the reference's leaf encoding
     (src/iop/blake2s_trivial_iop.rs:36-42), two 16-bit limbs per word,
     zero-padded to 32 bytes. The word is formed in int64 and narrowed,
     since hi << 16 overflows int32."""
-    n, n16 = limbs.shape
+    n16 = limbs.shape[-1]
     if n16 % 2:
         raise ValueError("n16 must be even")
-    lo = limbs[:, 0::2].to(torch.int64)
-    hi = limbs[:, 1::2].to(torch.int64)
+    lo = limbs[..., 0::2].to(torch.int64)
+    hi = limbs[..., 1::2].to(torch.int64)
     words = kernels.u32_to_i32(lo | (hi << 16))
     if n16 // 2 < 8:
-        words = torch.cat(
-            [words, torch.zeros((n, 8 - n16 // 2), dtype=torch.int32, device=limbs.device)],
-            dim=-1)
+        pad = torch.zeros(limbs.shape[:-1] + (8 - n16 // 2,), dtype=torch.int32,
+                          device=limbs.device)
+        words = torch.cat([words, pad], dim=-1)
     return words.contiguous()
 
 

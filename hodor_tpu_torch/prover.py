@@ -10,18 +10,29 @@ point (the protocol's sequential dependencies, src/prover/mod.rs:82-127):
   DEEP:    f(mz), g(z), h1 and h2 on their LDE domains
   FRI:     the fold/commit ladders of h1 and h2
   queries: every oracle opening in one gather and one fetch
+
+`prove(..., checkpoint_dir=...)` saves each of the first four stages as it
+completes and resumes from the saved ones (checkpoint.py).
+`prove_batch` proves several witnesses of one instance at once: every
+array of a stage carries a leading lane axis, one lane per proof, and
+each launch covers all lanes, so B proofs share one set of launches and
+host syncs instead of B sets (the port of hodor_tpu/prover.py
+prove_batch, which vmaps the same stages).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from .ali import ALIInstance
 from .arp import ARPInstance, InstanceProperties, Witness
-from .field.limbs import LimbOps
+from .checkpoint import ProveCheckpoint
+from .errors import SynthesisError
+from .field.limbs import LimbOps, from_numpy_limbs, to_numpy_limbs
 from .fri import FRIProof, NaiveFriIop
 from .fri.fri import gather_chain_queries
 from .merkle.tree import IopQuery, MerkleTree, digest_to_bytes, fetch_roots
@@ -45,12 +56,28 @@ class InstanceProof:
     fri_proof_h2: FRIProof
 
 
+def _opening(ops: LimbOps, index: int, v, sibs) -> IopQuery:
+    """An oracle opening from one gathered query: the value (1, L) and its
+    sibling digests (depth, 1, 8)."""
+    path = [digest_to_bytes(sibs[d, 0]) for d in range(sibs.shape[0])]
+    return IopQuery(index=index, value=int(ops.decode(v[0])), path=path)
+
+
 class Prover:
+    @staticmethod
+    def from_config(properties: InstanceProperties, config, device="cuda") -> "Prover":
+        """Construct from a ProofSystemConfig (config.py), the runtime
+        analog of the reference's generic parameters, on `device`."""
+        return Prover(properties, lde_factor=config.lde_factor,
+                      fri_final_degree_plus_one=config.fri_final_degree_plus_one,
+                      device=device)
+
     def __init__(self, properties: InstanceProperties, lde_factor: int,
-                 fri_final_degree_plus_one: int, device, ntt_impl: str = "level"):
-        """ntt_impl: the form of every NTT level of the prove, "level",
-        "two_step" or "fused" (ntt/matmul.py); the proof bytes are the
-        same under all three."""
+                 fri_final_degree_plus_one: int, device="cuda", ntt_impl: str = "level"):
+        """device: where the prove runs, the card unless the caller asks
+        for "cpu". ntt_impl: the form of every NTT level of the prove,
+        "level", "two_step" or "fused" (ntt/matmul.py); the proof bytes are
+        the same under all three."""
         self.field = properties.field
         self.device = torch.device(device)
         self.ops = LimbOps(self.field, self.device, ntt_impl)
@@ -59,49 +86,143 @@ class Prover:
         self.lde_factor = lde_factor
         self.fri_final_degree_plus_one = fri_final_degree_plus_one
 
-    def prove(self, witness: Witness) -> InstanceProof:
+    def _rebuilt(self, values, saved_roots: List[bytes], stage: str) -> List[MerkleTree]:
+        """Trees rebuilt from a checkpoint's saved values (a list of
+        (N, L) tensors), each root held to the saved one."""
+        trees = [MerkleTree.create(v, self.field) for v in values]
+        if fetch_roots(trees) != list(saved_roots):
+            raise SynthesisError(f"checkpoint stage {stage!r}: a tree rebuilt from the saved "
+                                 "values has another root than the saved one")
+        return trees
+
+    def prove(self, witness: Witness, checkpoint_dir: Optional[str] = None) -> InstanceProof:
         """Full prove pipeline (src/prover/mod.rs:66-174). witness: the
         register columns as lists of canonical ints, or the native witness
-        chains' (R, rows, 4) uint64 array (`ARPInstance.encode_witness`)."""
+        chains' (R, rows, 4) uint64 array (`ARPInstance.encode_witness`).
+
+        checkpoint_dir (optional): persist each completed Fiat-Shamir
+        stage (checkpoint.py) so that an interrupted prove resumes from
+        the last stage boundary on a re-run with the same directory; the
+        resumed proof is byte-identical."""
         ops = self.ops
         field = self.field
+        ck, done = None, []
+        if checkpoint_dir is not None:
+            ck = ProveCheckpoint(checkpoint_dir)
+            done = ck.completed_prefix()
         transcript = Blake2sTranscript(field)
         # exposed for Fiat-Shamir audits (the golden-vector tests)
         self.last_transcript = transcript
         timer = StageTimer(self.device)
         self.last_timings = timer
 
+        def load(stage):
+            nonlocal transcript
+            arrays, meta = ck.load(stage)
+            transcript = Blake2sTranscript.restore(field, meta["transcript"])
+            self.last_transcript = transcript
+            return arrays, meta
+
+        def limbs(arr):
+            return from_numpy_limbs(arr, self.device)
+
         # 1+2. witness -> polys -> LDEs -> oracles (src/prover/mod.rs:69-80)
-        with timer.stage("witness+f_ldes+f_oracles"):
-            w_dev = self.arp.encode_witness(witness)
-            witness_polys = self.arp.calculate_witness_polys(w_dev)  # (R, T, L)
-            del w_dev
-            f_ldes = lde(ops, witness_polys, self.lde_factor)  # (R, N_f, L)
-            f_oracles = [MerkleTree.create(f_ldes[r], field) for r in range(f_ldes.shape[0])]
-            f_iop_roots = fetch_roots(f_oracles)
-        for rb in f_iop_roots:
-            transcript.commit_bytes(rb)
+        if "stage1" in done:
+            with timer.stage("witness+f_ldes+f_oracles(resumed)"):
+                arrays, meta = load("stage1")
+                witness_polys = limbs(arrays["witness_polys"])
+                f_ldes = limbs(arrays["f_ldes"])
+                f_oracles = self._rebuilt(list(f_ldes), [bytes.fromhex(h) for h in meta["f_roots"]],
+                                          "stage1")
+                f_iop_roots = [o.get_root() for o in f_oracles]
+        else:
+            with timer.stage("witness+f_ldes+f_oracles"):
+                w_dev = self.arp.encode_witness(witness)
+                witness_polys = self.arp.calculate_witness_polys(w_dev)  # (R, T, L)
+                del w_dev
+                f_ldes = lde(ops, witness_polys, self.lde_factor)  # (R, N_f, L)
+                f_oracles = [MerkleTree.create(f_ldes[r], field) for r in range(f_ldes.shape[0])]
+                f_iop_roots = fetch_roots(f_oracles)
+            for rb in f_iop_roots:
+                transcript.commit_bytes(rb)
+            if ck is not None:
+                ck.save("stage1", {"witness_polys": to_numpy_limbs(witness_polys),
+                                   "f_ldes": to_numpy_limbs(f_ldes)},
+                        {"f_roots": [rb.hex() for rb in f_iop_roots],
+                         "transcript": transcript.snapshot()})
 
         # 3+4. G composition + G LDE + oracle (src/prover/mod.rs:89-95)
-        with timer.stage("g_composition+g_oracle"):
-            g_poly = self.ali.calculate_g(transcript, witness_polys)  # (D, L)
-            g_lde_vals = lde(ops, g_poly, self.lde_factor)
-            g_oracle = MerkleTree.create(g_lde_vals, field)
-            g_iop_root = g_oracle.get_root()
-        transcript.commit_bytes(g_iop_root)
+        if "stage_g" in done:
+            with timer.stage("g_composition+g_oracle(resumed)"):
+                arrays, meta = load("stage_g")
+                g_poly = limbs(arrays["g_poly"])
+                g_lde_vals = limbs(arrays["g_lde_vals"])
+                (g_oracle,) = self._rebuilt([g_lde_vals], [bytes.fromhex(meta["g_root"])],
+                                            "stage_g")
+                g_iop_root = g_oracle.get_root()
+        else:
+            with timer.stage("g_composition+g_oracle"):
+                g_poly = self.ali.calculate_g(transcript, witness_polys)  # (D, L)
+                g_lde_vals = lde(ops, g_poly, self.lde_factor)
+                g_oracle = MerkleTree.create(g_lde_vals, field)
+                g_iop_root = g_oracle.get_root()
+            transcript.commit_bytes(g_iop_root)
+            if ck is not None:
+                ck.save("stage_g", {"g_poly": to_numpy_limbs(g_poly),
+                                    "g_lde_vals": to_numpy_limbs(g_lde_vals)},
+                        {"g_root": g_iop_root.hex(), "transcript": transcript.snapshot()})
 
         # 5. DEEP (src/prover/mod.rs:99-106)
-        with timer.stage("deep"):
-            h1_lde, h2_lde, f_at_z_m, _g_at_z = self.ali.calculate_deep(
-                witness_polys, f_ldes, g_poly, g_lde_vals, transcript
-            )
+        if "deep" in done:
+            with timer.stage("deep(resumed)"):
+                arrays, meta = load("deep")
+                h1_lde = limbs(arrays["h1_lde"])
+                h2_lde = limbs(arrays["h2_lde"])
+                f_at_z_m = [int(v) for v in meta["f_at_z_m"]]
+        else:
+            with timer.stage("deep"):
+                h1_lde, h2_lde, f_at_z_m, _g_at_z = self.ali.calculate_deep(
+                    witness_polys, f_ldes, g_poly, g_lde_vals, transcript
+                )
+            if ck is not None:
+                ck.save("deep", {"h1_lde": to_numpy_limbs(h1_lde),
+                                 "h2_lde": to_numpy_limbs(h2_lde)},
+                        {"f_at_z_m": [str(v) for v in f_at_z_m],
+                         "transcript": transcript.snapshot()})
         del witness_polys, g_poly
 
         # 6. FRI for h1 and h2 (src/prover/mod.rs:112-113)
-        with timer.stage("fri_h1+h2"):
-            h1_proto, h2_proto = NaiveFriIop.proofs_from_ldes(
-                ops, [h1_lde, h2_lde], self.lde_factor, self.fri_final_degree_plus_one
-            )
+        if "fri" in done:
+            with timer.stage("fri_h1+h2(resumed)"):
+                arrays, meta = load("fri")
+                protos = []
+                for tag, lde_vals in (("h1", h1_lde), ("h2", h2_lde)):
+                    inter = [limbs(arrays[f"{tag}_v{i}"])
+                             for i in range(int(meta[f"{tag}_rounds"]))]
+                    trees = self._rebuilt([lde_vals] + inter,
+                                          [digest_to_bytes(r) for r in arrays[f"{tag}_roots"]],
+                                          "fri")
+                    protos.append(NaiveFriIop._assemble_prototype(
+                        ops, trees, inter, arrays[f"{tag}_fc"],
+                        lde_vals.shape[0] // self.lde_factor, self.fri_final_degree_plus_one,
+                        self.lde_factor))
+                h1_proto, h2_proto = protos
+        else:
+            with timer.stage("fri_h1+h2"):
+                h1_proto, h2_proto = NaiveFriIop.proofs_from_ldes(
+                    ops, [h1_lde, h2_lde], self.lde_factor, self.fri_final_degree_plus_one
+                )
+            if ck is not None:
+                arrays = {}
+                meta = {"transcript": transcript.snapshot()}
+                for tag, proto in (("h1", h1_proto), ("h2", h2_proto)):
+                    meta[f"{tag}_rounds"] = len(proto.intermediate_values)
+                    for i, v in enumerate(proto.intermediate_values):
+                        arrays[f"{tag}_v{i}"] = to_numpy_limbs(v)
+                    arrays[f"{tag}_roots"] = np.stack(
+                        [np.frombuffer(rb, dtype="<u4") for rb in proto.get_roots()])
+                    arrays[f"{tag}_fc"] = to_numpy_limbs(ops.encode([proto.final_coefficients])[0])
+                ck.save("fri", arrays, meta)
 
         # 7. commit final roots + coefficients (src/prover/mod.rs:118-127)
         for proto in (h1_proto, h2_proto):
@@ -138,13 +259,8 @@ class Prover:
             fri_proof_h2 = NaiveFriIop.proof_from_gathered(
                 h2_proto, h2_plan[0], h2_plan[1], gathered[n1:n1 + n2], ops
             )
-
-            def opening(index, v, sibs):
-                path = [digest_to_bytes(sibs[d, 0]) for d in range(sibs.shape[0])]
-                return IopQuery(index=index, value=int(ops.decode(v[0])), path=path)
-
-            f_queries = [opening(x_h1, v, s) for v, s in gathered[n1 + n2:-1]]
-            g_query = opening(x_h2, *gathered[-1])
+            f_queries = [_opening(ops, x_h1, v, s) for v, s in gathered[n1 + n2:-1]]
+            g_query = _opening(ops, x_h2, *gathered[-1])
 
         return InstanceProof(
             f_at_z_m=f_at_z_m,
@@ -157,3 +273,114 @@ class Prover:
             fri_proof_h1=fri_proof_h1,
             fri_proof_h2=fri_proof_h2,
         )
+
+    def prove_batch(self, witnesses: List[Witness]) -> List[InstanceProof]:
+        """Prove several witnesses of this instance at once (the port of
+        hodor_tpu/prover.py prove_batch). Every stage runs once over a
+        leading lane axis B, one lane per witness: each kernel launch and
+        each host fetch covers all lanes, so the batch makes about as many
+        launches as one prove(). Each returned proof is byte-identical to
+        prove() of the same witness. Each witness takes either form of
+        `prove`.
+
+        B == 1, and an instance with no constraints or no boundary
+        constraints, go to sequential prove() calls, as in the JAX
+        package."""
+        props = self.arp.properties
+        if len(witnesses) == 1 or not props.constraints or not props.boundary_constraints:
+            return [self.prove(w) for w in witnesses]
+        ops = self.ops
+        field = self.field
+        lanes = range(len(witnesses))
+        transcripts = [Blake2sTranscript(field) for _ in witnesses]
+        self.last_transcripts = transcripts
+        timer = StageTimer(self.device)
+        self.last_timings = timer
+
+        # stage 1, batched: (B, R, T, L) -> (B, R, N_f, L), one batched
+        # tree per register
+        with timer.stage("batch:witness+f_ldes+f_oracles"):
+            w_dev = torch.stack([self.arp.encode_witness(w) for w in witnesses])
+            witness_polys = self.arp.calculate_witness_polys(w_dev)
+            del w_dev
+            f_ldes = lde(ops, witness_polys, self.lde_factor)
+            f_oracles = [MerkleTree.create(f_ldes[:, r], field) for r in range(f_ldes.shape[1])]
+            f_roots = fetch_roots(f_oracles)  # per register, per lane
+        f_iop_roots = [[roots[b] for roots in f_roots] for b in lanes]
+        for b, t in enumerate(transcripts):
+            for rb in f_iop_roots[b]:
+                t.commit_bytes(rb)
+
+        # G, batched (challenges drawn per proof in the reference order)
+        with timer.stage("batch:g_composition+g_oracle"):
+            g_poly = self.ali.calculate_g_batch(transcripts, witness_polys)  # (B, D, L)
+            g_lde_vals = lde(ops, g_poly, self.lde_factor)
+            g_oracle = MerkleTree.create(g_lde_vals, field)
+            g_iop_roots = g_oracle.get_roots()
+        for t, rb in zip(transcripts, g_iop_roots):
+            t.commit_bytes(rb)
+
+        # DEEP, batched
+        with timer.stage("batch:deep"):
+            h1_lde, h2_lde, f_at_z_m, _g_at_z = self.ali.calculate_deep_batch(
+                witness_polys, f_ldes, g_poly, g_lde_vals, transcripts)
+        del witness_polys, g_poly
+
+        # FRI, batched: one ladder per polynomial for all lanes
+        with timer.stage("batch:fri_h1+h2"):
+            (trees1, inter1, protos1), (trees2, inter2, protos2) = \
+                NaiveFriIop.proofs_from_lde_batches(
+                    ops, [h1_lde, h2_lde], self.lde_factor, self.fri_final_degree_plus_one)
+
+        # per proof: final roots and coefficients, then the indices
+        x_h1, x_h2 = [], []
+        for b, t in enumerate(transcripts):
+            for proto in (protos1[b], protos2[b]):
+                t.commit_bytes(proto.get_final_root())
+                for el in proto.get_final_coefficients():
+                    t.commit_field_element(el)
+            x_h1.append(bytes_to_challenge_index(
+                t.get_challenge_bytes(), h1_lde.shape[1], self.lde_factor))
+            x_h2.append(bytes_to_challenge_index(
+                t.get_challenge_bytes(), h2_lde.shape[1], self.lde_factor))
+
+        # every opening of every proof: one gather over the lanes, one fetch
+        with timer.stage("batch:queries"):
+            cosets1 = [NaiveFriIop.coset_walk(protos1[b], x_h1[b]) for b in lanes]
+            cosets2 = [NaiveFriIop.coset_walk(protos2[b], x_h2[b]) for b in lanes]
+            chain_data, idx_arrays = [], []
+            for trees, values, cosets in ((trees1, [h1_lde] + inter1, cosets1),
+                                          (trees2, [h2_lde] + inter2, cosets2)):
+                chain_data += list(zip(trees, values))
+                idx_arrays += [torch.tensor([walk[k] for walk in cosets], dtype=torch.int64,
+                                            device=self.device) for k in range(len(trees))]
+            x1 = torch.tensor(x_h1, dtype=torch.int64, device=self.device)[:, None]
+            x2 = torch.tensor(x_h2, dtype=torch.int64, device=self.device)[:, None]
+            chain_data += [(o, f_ldes[:, r]) for r, o in enumerate(f_oracles)]
+            chain_data.append((g_oracle, g_lde_vals))
+            idx_arrays += [x1] * len(f_oracles) + [x2]
+            gathered = gather_chain_queries(chain_data, idx_arrays)
+
+        # host assembly per proof
+        n1, n2 = len(trees1), len(trees2)
+        proofs = []
+        for b in lanes:
+            lane = [(v[b], s[:, b]) for v, s in gathered]
+            fri_proofs = [
+                NaiveFriIop.proof_from_gathered(
+                    proto, [proto.l0_commitment] + proto.intermediate_commitments, cosets[b],
+                    part, ops)
+                for proto, cosets, part in ((protos1[b], cosets1, lane[:n1]),
+                                            (protos2[b], cosets2, lane[n1:n1 + n2]))]
+            proofs.append(InstanceProof(
+                f_at_z_m=f_at_z_m[b],
+                f_iop_roots=f_iop_roots[b],
+                g_iop_root=g_iop_roots[b],
+                f_queries=[_opening(ops, x_h1[b], v, s) for v, s in lane[n1 + n2:-1]],
+                g_query=_opening(ops, x_h2[b], *lane[-1]),
+                h1_iop_roots=protos1[b].get_roots(),
+                h2_iop_roots=protos2[b].get_roots(),
+                fri_proof_h1=fri_proofs[0],
+                fri_proof_h2=fri_proofs[1],
+            ))
+        return proofs

@@ -1,10 +1,12 @@
 """Device-time breakdown of a warm 2^20-row VDF prove on one GPU.
 
-    python -m hodor_tpu_torch.tools.profile_prove [quadratic|cubic]
+    python -m hodor_tpu_torch.tools.profile_prove [quadratic|cubic] [B]
 
-(the quadratic VDF unless the cubic is named). Builds the kernels, sets up a prover (lde factor 16, FRI to a constant),
-runs one cold prove, then one warm prove without the profiler and one
-under `torch.profiler`. Prints:
+(the quadratic VDF unless the cubic is named; with B > 1, a
+`Prover.prove_batch` of B lanes, the starts of the lanes after the first
+under the first one's instance). Builds the kernels, sets up a prover (lde
+factor 16, FRI to a constant), runs one cold prove, then one warm prove
+without the profiler and one under `torch.profiler`. Prints:
   - the card's name and power limit (nvidia-smi);
   - the witness chain's host seconds (`into_arp`: the native chain, which
     `witness="auto"` takes at this length) and `ARPInstance.encode_witness`
@@ -30,6 +32,7 @@ import time
 import torch
 
 LOG_ROWS = 20
+STARTS = ((1, 2), (3, 5), (2, 9), (7, 11), (4, 13), (6, 1), (8, 3), (5, 10))
 
 GROUPS = (
     ("ntt_level (mma body)", ("ntt_level_mma_kernel",)),
@@ -78,9 +81,10 @@ def main(argv) -> int:
     from hodor_tpu_torch.utils.native import build_host_library
 
     which = argv[1] if len(argv) > 1 else "quadratic"
-    if which not in ("quadratic", "cubic") or len(argv) > 2:
-        print("usage: python -m hodor_tpu_torch.tools.profile_prove [quadratic|cubic]",
-              file=sys.stderr)
+    lanes = int(argv[2]) if len(argv) > 2 and argv[2].isdigit() else 1
+    if which not in ("quadratic", "cubic") or len(argv) > 3 or not 1 <= lanes <= len(STARTS):
+        print("usage: python -m hodor_tpu_torch.tools.profile_prove [quadratic|cubic] [B], "
+              f"1 <= B <= {len(STARTS)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -93,13 +97,20 @@ def main(argv) -> int:
     K.build_kernels()
     build_host_library()
     steps = (1 << LOG_ROWS) - 1
-    model = VDF(F_STARK, 1, 2, steps) if which == "quadratic" else CubicVDF(F_STARK, 1, 1, steps)
+    starts = ((1, 1),) + STARTS[1:] if which == "cubic" else STARTS
+    models = [VDF(F_STARK, c0, c1, steps) if which == "quadratic" else
+              CubicVDF(F_STARK, c0, c1, steps) for c0, c1 in starts[:lanes]]
     t0 = time.perf_counter()
-    witness, props = model.into_arp()
+    witness, props = models[0].into_arp()
     print(f"model: {which} VDF, {props.num_registers} registers; witness chain "
-          f"({'native' if model.native else 'python'}) {time.perf_counter() - t0:.3f} s")
+          f"({'native' if models[0].native else 'python'}) {time.perf_counter() - t0:.3f} s")
+    witnesses = [witness] + [m.into_arp()[0] for m in models[1:]]
     prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device="cuda")
-    prover.prove(witness)
+
+    def run():
+        return prover.prove(witness) if lanes == 1 else prover.prove_batch(witnesses)
+
+    run()
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -109,15 +120,16 @@ def main(argv) -> int:
     del w
 
     t0 = time.perf_counter()
-    prover.prove(witness)
+    run()
     torch.cuda.synchronize()
     wall_off = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prover.prove(witness)
+        run()
         torch.cuda.synchronize()
         wall_on = time.perf_counter() - t0
-    print(f"warm prove 2^{LOG_ROWS} rows: {wall_off:.3f} s without the profiler, "
+    what = "prove" if lanes == 1 else f"prove_batch of {lanes} lanes"
+    print(f"warm {what} 2^{LOG_ROWS} rows: {wall_off:.3f} s without the profiler, "
           f"{wall_on:.3f} s under it")
     print(prover.last_timings.report())
 

@@ -11,7 +11,9 @@ Byte-exact port of Blake2sTranscript (src/transcript/mod.rs:20-79):
 - get_challenge: same d, then decode: read repr_size bytes BE from the
   START of d, mask the top u64 limb with 0xff..ff >> ((256-CAPACITY) % 64).
 
-The transcript is tiny host-side scalar work on hashlib.
+The transcript is tiny host-side scalar work on hashlib. It keeps every
+byte it absorbed, so that it can be snapshotted into a prove checkpoint
+(checkpoint.py) and restored, in the JSON form of hodor_tpu/transcript.py.
 """
 
 from __future__ import annotations
@@ -32,6 +34,10 @@ class Blake2sTranscript:
         assert field.num_bits < 256
         self.field = field
         self._state = hashlib.blake2s(key=KEY, person=PERSONAL)
+        # every byte ever absorbed, in order: the state is a pure function
+        # of this stream, which makes transcripts checkpoint/restorable
+        # (hashlib objects cannot be pickled) - a few KB a prove
+        self._raw = bytearray()
         # every challenge drawn, in order - the Fiat-Shamir audit trail
         # golden-vector tests freeze (tests/test_golden.py)
         self.log: list = []
@@ -41,6 +47,7 @@ class Blake2sTranscript:
 
     def _absorb(self, data: bytes) -> None:
         self._state.update(data)
+        self._raw += data
 
     def commit_bytes(self, data: bytes) -> None:
         self._absorb(data)
@@ -60,6 +67,30 @@ class Blake2sTranscript:
         c = self.field.from_be_with_shave(d)
         self.log.append(("field", c))
         return c
+
+    def clone(self) -> "Blake2sTranscript":
+        t = Blake2sTranscript(self.field)
+        t._state = self._state.copy()
+        t._raw = bytearray(self._raw)
+        t.log = list(self.log)
+        return t
+
+    # ------------------------------------------------ checkpoint/resume
+
+    def snapshot(self) -> dict:
+        """JSON-serializable state (checkpoint.py): the absorbed byte
+        stream plus the audit log."""
+        return {
+            "raw": bytes(self._raw).hex(),
+            "log": [[k, v if isinstance(v, str) else str(v)] for k, v in self.log],
+        }
+
+    @classmethod
+    def restore(cls, field: Field, snap: dict) -> "Blake2sTranscript":
+        t = cls(field)
+        t._absorb(bytes.fromhex(snap["raw"]))
+        t.log = [(k, v if k == "bytes" else int(v)) for k, v in snap["log"]]
+        return t
 
 
 def bytes_to_challenge_index(challenge_bytes: bytes, lde_size: int, lde_factor: int) -> int:

@@ -349,3 +349,70 @@ def test_goldens_on_the_card(dev, name):
         expected = [tuple(e) for e in json.load(f)]
     assert [(k, v if isinstance(v, str) else str(v))
             for k, v in prover.last_transcript.log] == expected
+
+
+@pytest.mark.parametrize("lanes,half", [(1, 1001), (3, 1001), (3, 3), (2, 128)])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_fri_fold_kernel_with_lanes(dev, name, lanes, half):
+    """(B, half, n16) halves with one challenge per lane, in one launch,
+    against the plain version and against the kernel lane by lane."""
+    field = FIELDS[name]
+    values = _canonical(field, (lanes, 2 * half), 15)
+    w = _canonical(field, (half,), 16)
+    c, inv2 = _canonical(field, (lanes,), 17), _canonical(field, (), 18)
+    vd, wd, cd, id2 = values.to(dev), w.to(dev), c.to(dev), inv2.to(dev)
+    for lo, hi in ((slice(None, half), slice(half, None)),
+                   (slice(0, None, 2), slice(1, None, 2))):
+        before = K.launch_counts["fri_fold"]
+        got = K.fri_fold(field, vd[:, lo], vd[:, hi], wd, cd, id2)
+        assert K.launch_counts["fri_fold"] == before + 1
+        _same(got, K.fri_fold_plain(field, values[:, lo], values[:, hi], w, c, inv2))
+        for b in range(lanes):
+            _same(got[b], K.fri_fold(field, vd[b, lo], vd[b, hi], wd, cd[b], id2))
+    _same(vd, values)
+
+
+def test_batched_tree_on_the_card(dev):
+    """A batch of trees built together: each lane's root and paths equal a
+    tree of that lane alone, and equal the CPU's."""
+    from hodor_tpu_torch.merkle.tree import MerkleTree, fetch_roots
+
+    field = F_STARK
+    leaves = _canonical(field, (3, 64), 19)
+    batch = MerkleTree.create(leaves.to(dev), field)
+    singles = [MerkleTree.create(leaves[b].to(dev), field) for b in range(3)]
+    assert batch.get_roots() == fetch_roots(singles)
+    assert batch.get_roots() == MerkleTree.create(leaves, field).get_roots()
+    idx = torch.tensor([[1, 5], [62, 0], [33, 33]], device=dev)
+    paths = batch.path_digests(idx)
+    for b, tree in enumerate(singles):
+        _same(paths[:, b], tree.path_digests(idx[b]))
+
+
+def test_prove_batch_on_the_card(dev):
+    """prove_batch of fib_f257 on two distinct lanes, on the card and on
+    the CPU: the same proof bytes."""
+    from hodor_tpu_torch import air
+    from hodor_tpu_torch.errors import DivisionByZeroError
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+
+    fib = air.Fibonacci(F257, final_b=5, at_step=3)
+    tracer = air.TestTraceSystem(F257)
+    fib.trace(tracer)
+    tracer.calculate_witness(1, 1, 3)
+    witness, props = tracer.into_arp()
+    cpu = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device="cpu")
+    for delta in range(1, 40):
+        corrupted = [list(col) for col in witness]
+        corrupted[0][2] = (corrupted[0][2] + delta) % F257.p
+        try:
+            want = [serialize_proof(p, F257) for p in cpu.prove_batch([witness, corrupted])]
+            break
+        except DivisionByZeroError:
+            continue
+    card = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev)
+    before = K.launch_counts["fri_fold"]
+    got = [serialize_proof(p, F257) for p in card.prove_batch([witness, corrupted])]
+    assert K.launch_counts["fri_fold"] > before
+    assert got == want and got[0] != got[1]

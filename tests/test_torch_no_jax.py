@@ -16,7 +16,11 @@ import hodor_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(hodor_tpu_torch.__path__, "hodor_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-missing = [m for m in ("hodor_tpu_torch.utils.native", "hodor_tpu_torch.models.vdf")
+missing = [m for m in ("hodor_tpu_torch.utils.native", "hodor_tpu_torch.models.vdf",
+                      "hodor_tpu_torch.checkpoint", "hodor_tpu_torch.config",
+                      "hodor_tpu_torch.poly", "hodor_tpu_torch.models.fp2",
+                      "hodor_tpu_torch.models.tensor_lde", "hodor_tpu_torch.utils.poly_scalar",
+                      "hodor_tpu_torch.utils.hashers")
            if m not in names]
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "hodor_tpu.")))
