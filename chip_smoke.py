@@ -18,7 +18,10 @@ Phases, each reported on its own line:
      on ragged shapes, a 64-bit field and a random W that is no fold of a
      DFT matrix; s8dot at a bare launch's shape and at the fused level's
      product shape beside torch._int_mm; outputs must be bit-equal
-     (tolerance 0: every output is canonical);
+     (tolerance 0: every output is canonical); the same at F_BLS's and
+     F_P63's widths (16 and 4 limbs with a nearly full top word), the NTT
+     levels at the radix-4 and radix-2 shapes of their transforms, at
+     every x = p - 1 too;
      kernel and plain times from CUDA events after a warm-up, beside the
      least time the card could take (bytes over 3.35 TB/s or operations
      over the peak of their type, whichever is larger) and, where one
@@ -56,12 +59,21 @@ Phases, each reported on its own line:
   9. at 2^16 rows: a checkpointed prove and resumes after each of the four
      stages, from_config, all byte-equal to a plain prove; the root of the
      host Blake2s library's tree over 2^16 leaves equal to the device
-     tree's.
-Phase 8 runs right after phase 5, whose prover it reuses and then frees.
-Every path of phases 5-8b zeroes the launch counts just before it runs
-and reads them just after, names the kernels it must have launched and
-prints the launches of each ntt_level body; the 2^20-row paths must have
-run the tensor-core body.
+     tree's;
+ 10. the quadratic VDF over F_BLS at 2^20 rows, lde factor 16, FRI to a
+     constant, native witness, as phase 5: every ntt_level launch on the
+     limb body (radix 4, 2 last), none on the tensor-core one;
+ 11. the quadratic VDF over F_P63 at 2^20 rows, lde factor 8, FRI to
+     degree 4 (fri_final_degree_plus_one = 4), native witness, the same;
+ 12. over F_STARK at lde factor 8, the same for the six-register instance
+     with polyvariate cross-register terms at 2^20 rows (its witness a
+     Python loop, timed) and the Repeated/Sparse one at 2^16 rows.
+Phase 8 runs right after phase 5, whose prover it reuses and then frees;
+every other phase lets its prover go when it returns. Every path of
+phases 5-12 zeroes the launch counts just before it runs and reads them
+just after, names the kernels it must have launched and prints the
+launches of each ntt_level body; the 2^20-row F_STARK paths must have run
+the tensor-core body.
 
 The line before the last holds the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -107,23 +119,37 @@ KERNEL_INFO = {
 MAIN_PATH_KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level", "fri_fold")
 
 
-# Least 32-bit integer operations per element at n16 = 16 (8 words),
-# counted from the sources: a Montgomery product is 2 * 8 * 8 multiply-adds
-# and a compare-subtract; a modular add or sub two 8-word carry chains and a
-# select; a Blake2s block 10 rounds of 8 G at 14 operations.
-OPS_MONT_MUL = 2 * 8 * 8 + 3 * 8
-OPS_ADDSUB = 3 * 8
+# Least 32-bit integer operations per element of a field of n16 limbs
+# (nw = n16 / 2 words), counted from the sources: a Montgomery product is
+# 2 nw^2 multiply-adds and a compare-subtract; a modular add or sub two
+# nw-word carry chains and a select; the two-step level's reduce folds
+# 4 n16 - 1 columns, then a reduction and a three-step chain; a Blake2s
+# block 10 rounds of 8 G at 14 operations.
 OPS_BLAKE2S = 10 * 8 * 14 + 40
-OPS_FRI_FOLD = 3 * OPS_MONT_MUL + 3 * OPS_ADDSUB
-OPS_WIDE_REDUCE = 4 * 63 + 8 * 8 + 3 * 3 * 8
 
 
-def ops_ntt_level(size: int) -> int:
+def ops_mont_mul(n16: int) -> int:
+    return 2 * (n16 // 2) ** 2 + 3 * (n16 // 2)
+
+
+def ops_addsub(n16: int) -> int:
+    return 3 * (n16 // 2)
+
+
+def ops_fri_fold(n16: int) -> int:
+    return 3 * ops_mont_mul(n16) + 3 * ops_addsub(n16)
+
+
+def ops_wide_reduce(n16: int) -> int:
+    return 4 * (4 * n16 - 1) + (n16 // 2) ** 2 + 9 * (n16 // 2)
+
+
+def ops_ntt_level(size: int, n16: int = 16) -> int:
     """int8 operations of one level output on the tensor cores: P x P byte
-    products of depth S, a multiply-add two operations, P = 32 byte planes.
-    The yardstick of both bodies: the card's least time for the function
-    is the tensor cores' whichever body runs."""
-    return 2 * size * 32 * 32
+    products of depth S, a multiply-add two operations, P = 2 n16 byte
+    planes. The yardstick of both bodies: the card's least time for the
+    function is the tensor cores' whichever body runs."""
+    return 2 * size * (2 * n16) ** 2
 
 
 def nbytes(*tensors) -> int:
@@ -168,7 +194,7 @@ def phase_kernels(dev):
     """Each kernel against its plain version; returns {name: record}."""
     import torch
 
-    from hodor_tpu_torch.field import F257, F_STARK, LimbOps
+    from hodor_tpu_torch.field import F257, F_BLS, F_P63, F_STARK, LimbOps
     from hodor_tpu_torch.field import kernels as K
     from hodor_tpu_torch.merkle.blake2s import keyed_midstate
     from hodor_tpu_torch.ntt import matmul as M
@@ -221,20 +247,20 @@ def phase_kernels(dev):
     s = random_canonical(field, (), gen, dev)
     compare("mont_mul", "2^20 x 16 limbs",
             lambda: K.mont_mul(field, a, b), lambda: K.mont_mul_plain(field, a, b),
-            nbytes(a, b), n * OPS_MONT_MUL)
+            nbytes(a, b), n * ops_mont_mul(16))
     compare("mont_mul", "2^20 x scalar (stride 0)",
             lambda: K.mont_mul(field, a, s), lambda: K.mont_mul_plain(field, a, s),
-            nbytes(a, s), n * OPS_MONT_MUL)
+            nbytes(a, s), n * ops_mont_mul(16))
     # a view offset by one element (the flat body at another base), and a
     # transposed operand that collapses to no flat or grid form (general)
     compare("mont_mul", "2^20 - 1, views offset by one",
             lambda: K.mont_mul(field, a[1:], b[:-1]),
             lambda: K.mont_mul_plain(field, a[1:], b[:-1]),
-            nbytes(a[1:], b[:-1]), (n - 1) * OPS_MONT_MUL)
+            nbytes(a[1:], b[:-1]), (n - 1) * ops_mont_mul(16))
     at, bt = a.reshape(16, 1 << 16, 16).transpose(0, 1), b.reshape(1 << 16, 16, 16)
     compare("mont_mul", "(2^16,16) transposed view (general)",
             lambda: K.mont_mul(field, at, bt), lambda: K.mont_mul_plain(field, at, bt),
-            nbytes(at, bt), n * OPS_MONT_MUL)
+            nbytes(at, bt), n * ops_mont_mul(16))
     # the static power in one launch: e = p - 2 (Fermat inverse) on 1, 7
     # and 2^16 elements, against the loop of plain products and x * x^e = 1
     e_inv = field.p - 2
@@ -249,7 +275,7 @@ def phase_kernels(dev):
             raise AssertionError(f"mont_pow: x * x^(p-2) != 1 on {count} elements")
         compare("mont_mul", f"mont_pow e=p-2 on {count} elements",
                 lambda: K.mont_pow(field, xp, e_inv), lambda: K.mont_pow_plain(field, xp, e_inv),
-                nbytes(xp), count * pow_muls * OPS_MONT_MUL, reps=5, plain_reps=1)
+                nbytes(xp), count * pow_muls * ops_mont_mul(16), reps=5, plain_reps=1)
     before = K.launch_counts["mont_mul"]
     if not torch.equal(ops.inv_fermat(s), K.mont_pow_plain(field, s, e_inv)):
         raise AssertionError("inv_fermat differs from its plain version")
@@ -260,10 +286,10 @@ def phase_kernels(dev):
     for mode in ("add", "sub"):
         compare("addsub", f"{mode} 2^20 x 16 limbs",
                 lambda: K.addsub(field, a, b, mode), lambda: K.addsub_plain(field, a, b, mode),
-                nbytes(a, b), n * OPS_ADDSUB)
+                nbytes(a, b), n * ops_addsub(16))
     compare("addsub", "sub 2^20 x scalar (stride 0)",
             lambda: K.addsub(field, a, s, "sub"), lambda: K.addsub_plain(field, a, s, "sub"),
-            nbytes(a, s), n * OPS_ADDSUB)
+            nbytes(a, s), n * ops_addsub(16))
     del a, b
     # the LDE's coset shift at the f-LDE's width: coefficients (R, 1, T)
     # read with stride 0 over the factor axis, against powers (factor, T)
@@ -271,7 +297,7 @@ def phase_kernels(dev):
     pw = random_canonical(field, (16, n // 2), gen, dev)
     compare("mont_mul", "LDE shift (2,1,2^19) x (16,2^19)",
             lambda: K.mont_mul(field, coeffs, pw), lambda: K.mont_mul_plain(field, coeffs, pw),
-            nbytes(coeffs, pw), 16 * n * OPS_MONT_MUL, reps=5, plain_reps=1)
+            nbytes(coeffs, pw), 16 * n * ops_mont_mul(16), reps=5, plain_reps=1)
     del coeffs, pw
 
     mid = keyed_midstate()
@@ -346,7 +372,7 @@ def phase_kernels(dev):
         compare("fri_fold", label,
                 lambda: K.fri_fold(field, lo, hi, wv, c_scaled, two_inv),
                 lambda: K.fri_fold_plain(field, lo, hi, wv, c_scaled, two_inv),
-                nbytes(values, wv, c_scaled, two_inv), half * OPS_FRI_FOLD,
+                nbytes(values, wv, c_scaled, two_inv), half * ops_fri_fold(16),
                 reps=5 if big else 20, plain_reps=1 if big else 3)
         del values, wv, lo, hi
     # the fold with a lane axis, one launch for all lanes: the first h1
@@ -365,7 +391,7 @@ def phase_kernels(dev):
         compare("fri_fold", label,
                 lambda: K.fri_fold(field, lo, hi, wv, cs, two_inv),
                 lambda: K.fri_fold_plain(field, lo, hi, wv, cs, two_inv),
-                nbytes(values, wv, cs, two_inv), lanes * half * OPS_FRI_FOLD,
+                nbytes(values, wv, cs, two_inv), lanes * half * ops_fri_fold(16),
                 reps=5 if big else 20, plain_reps=1 if big else 3)
         del values, wv, cs, lo, hi
 
@@ -379,7 +405,8 @@ def phase_kernels(dev):
         compare("wide_reduce", f"2^20 elements radix 128 {label}",
                 lambda: K.wide_reduce(field, columns, 128, t),
                 lambda: K.wide_reduce_plain(field, columns, 128, t),
-                nbytes(columns, t), n * (OPS_WIDE_REDUCE + (OPS_MONT_MUL if t is not None else 0)),
+                nbytes(columns, t),
+                n * (ops_wide_reduce(16) + (ops_mont_mul(16) if t is not None else 0)),
                 reps=5, plain_reps=1)
     del columns
     def dft_case(case, fld, w8, wsum, xs8, size, t, reps=3):
@@ -448,6 +475,9 @@ def phase_kernels(dev):
                 library_fn=lambda: torch._int_mm(sa, sb), reps=10, plain_reps=2)
     del sa, sb
 
+    for fld in (F_BLS, F_P63):
+        kernel_cases_off_f_stark(dev, fld, gen, compare)
+
     # the three forms of the level on the same x and twiddle table
     forms = {}
     for impl in ("level", "two_step", "fused"):
@@ -463,6 +493,117 @@ def phase_kernels(dev):
             raise AssertionError(f"level form {impl!r} differs from 'level'")
     log("level forms: two_step and fused bit-equal to level")
     return records
+
+
+def worst_case(field, shape, device):
+    """Every element p - 1: the largest canonical value, in every limb."""
+    import torch
+
+    top = [((field.p - 1) >> (16 * i)) & 0xFFFF for i in range(field.n16)]
+    return torch.tensor(top, dtype=torch.int32, device=device).expand(
+        shape + (field.n16,)).contiguous()
+
+
+def kernel_cases_off_f_stark(dev, field, gen, compare, log_n: int = 20):
+    """Phase 3's cases at the widths phases 10 and 11 give the kernels:
+    F_BLS (16 limbs) and F_P63 (4 limbs), both with a nearly full top word
+    (R/p = 2.21 and 2.00), at 2^log_n elements. The NTT levels are those
+    of the radix-4 recursion of a 2^20-point transform, (4^k, 4, 2^(18 - 2k))
+    with the next level's twiddle table and the terminal level without one
+    or with the scalar 1/N, and the radix-2 terminal level of an odd log
+    size; the first and the terminal level at all x = p - 1 too, the
+    largest sums the limb body sees.
+    wide_reduce and the __dp4a body of dft_reduce at S = 4 are the other
+    two level forms at these widths."""
+    import torch
+
+    from hodor_tpu_torch.field import LimbOps
+    from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.ntt import matmul as M
+
+    ops = LimbOps(field, dev)
+    n16, tag, n = field.n16, field.name, 1 << log_n
+    if M.max_radix(field) != 4:
+        raise AssertionError(f"{tag}: max_radix {M.max_radix(field)}, expected 4")
+    a = random_canonical(field, (n,), gen, dev)
+    b = random_canonical(field, (n,), gen, dev)
+    at, bt = a.reshape(16, n // 16, n16).transpose(0, 1), b.reshape(n // 16, 16, n16)
+    coeffs = random_canonical(field, (2, 1, n // 2), gen, dev)
+    pw = random_canonical(field, (16, n // 2), gen, dev)
+    for label, x, y, count in ((f"2^{log_n}", a, b, n),
+                               (f"LDE shift (2,1,2^{log_n - 1}) x (16,2^{log_n - 1})", coeffs, pw,
+                                16 * n),
+                               (f"(2^{log_n - 4},16) transposed view", at, bt, n)):
+        compare("mont_mul", f"{tag} {label} [{K.mont_mul_body(x, y)}]",
+                lambda: K.mont_mul(field, x, y), lambda: K.mont_mul_plain(field, x, y),
+                nbytes(x, y), count * ops_mont_mul(n16), reps=5, plain_reps=1)
+    del coeffs, pw, at, bt
+    e_inv = field.p - 2
+    pow_muls = e_inv.bit_length() - 1 + bin(e_inv).count("1") - 1
+    for count in (1, n // 16):
+        xp = a[:count]
+        if not torch.equal(K.mont_mul(field, K.mont_pow(field, xp, e_inv), xp),
+                           ops.one_m.expand(count, n16)):
+            raise AssertionError(f"{tag} mont_pow: x * x^(p-2) != 1 on {count} elements")
+        compare("mont_mul", f"{tag} mont_pow e=p-2 on {count} elements",
+                lambda: K.mont_pow(field, xp, e_inv), lambda: K.mont_pow_plain(field, xp, e_inv),
+                nbytes(xp), count * pow_muls * ops_mont_mul(n16), reps=5, plain_reps=1)
+    for mode in ("add", "sub"):
+        compare("addsub", f"{tag} {mode} 2^{log_n}",
+                lambda: K.addsub(field, a, b, mode), lambda: K.addsub_plain(field, a, b, mode),
+                nbytes(a, b), n * ops_addsub(n16))
+    c_scaled = ops.mul(random_canonical(field, (), gen, dev), ops.two_inv_m)
+    wv = random_canonical(field, (n // 2,), gen, dev)
+    lo, hi = a[:n // 2], a[n // 2:]
+    compare("fri_fold", f"{tag} half=2^{log_n - 1}",
+            lambda: K.fri_fold(field, lo, hi, wv, c_scaled, ops.two_inv_m),
+            lambda: K.fri_fold_plain(field, lo, hi, wv, c_scaled, ops.two_inv_m),
+            nbytes(a, wv, c_scaled, ops.two_inv_m), n // 2 * ops_fri_fold(n16), reps=5,
+            plain_reps=1)
+    del a, b, wv, lo, hi
+
+    ninv = ops.const(field.inv(n))
+    quarter, half = n // 4, n // 2
+    levels = [(4, 4 ** k, quarter // 4 ** k, "table") for k in (0, 3, 6)
+              if 4 ** k < quarter]
+    levels += [(4, 1, quarter, None), (4, quarter, 1, None), (4, quarter, 1, "scalar"),
+               (2, half, 1, None), (2, half, 1, "scalar"), (2, 1, half, "table")]
+    for size, bsz, cols, tw_kind in levels:
+        w = M.dft_matrix(ops, size, False)
+        tw = {"table": random_canonical(field, (size, cols), gen, dev), "scalar": ninv,
+              None: None}[tw_kind]
+        worst = (bsz, cols) in ((1, quarter), (half, 1))
+        for inputs in ("random", "all p-1") if worst else ("random",):
+            x = random_canonical(field, (bsz, size, cols), gen, dev) if inputs == "random" \
+                else worst_case(field, (bsz, size, cols), dev)
+            before = K.ntt_level_body_counts["limb"]
+            compare("ntt_level", f"{tag} S={size} B={bsz} C={cols} {tw_kind or 'no'} twiddle, "
+                    f"{inputs} [limb]",
+                    lambda: K.ntt_level(field, x, w, tw),
+                    lambda: K.ntt_level_plain(field, x, w, tw),
+                    nbytes(x, w, tw), n * ops_ntt_level(size, n16), "int8", reps=5, plain_reps=1)
+            if K.ntt_level_body_counts["limb"] == before:
+                raise AssertionError(f"{tag} S={size}: the limb body did not launch")
+    # the other two level forms at S = 4: the two-step reduce of the exact
+    # columns, and dft_reduce (its __dp4a body: S < 32)
+    x = random_canonical(field, (1, 4, quarter), gen, dev)
+    tw = random_canonical(field, (4, quarter), gen, dev)
+    w_s8, w_sum = M.folded_dft_matrix(ops, 4, False)
+    x_s8 = M.encode_s8(x).contiguous()
+    columns = K.dft_columns_plain(w_s8, w_sum, x_s8)
+    compare("wide_reduce", f"{tag} S=4 (1,4,2^{log_n - 2}) twiddle table",
+            lambda: K.wide_reduce(field, columns, 4, tw),
+            lambda: K.wide_reduce_plain(field, columns, 4, tw),
+            nbytes(columns, tw), n * (ops_wide_reduce(n16) + ops_mont_mul(n16)), reps=5,
+            plain_reps=1)
+    del columns
+    if K.dft_reduce_body(field, 4) != "dp4a":
+        raise AssertionError(f"{tag}: dft_reduce at S=4 must take the __dp4a body")
+    compare("dft_reduce", f"{tag} S=4 (1,4,2^{log_n - 2}) twiddle table [dp4a]",
+            lambda: K.dft_reduce(field, w_s8, w_sum, x_s8, 4, tw),
+            lambda: K.dft_reduce_plain(field, w_s8, w_sum, x_s8, 4, tw),
+            nbytes(w_s8, w_sum, x_s8, tw), n * 2 * w_s8.shape[0] * w_s8.shape[2], "int8",
+            reps=5, plain_reps=1)
 
 
 def phase_goldens(dev) -> None:
@@ -514,13 +655,17 @@ def require_launched(path: str, counts, names) -> None:
         raise AssertionError(f"{path}: kernels never launched on this path: {missing}")
 
 
-def phase_at_size(dev, label: str, model):
+def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_factor: int = 16,
+                  fri_final_degree_plus_one: int = 1, ntt_bodies=("mma", "limb")):
     """Set-up, cold and warm prove, verify and a tampered proof for one
-    model at 2^LOG_ROWS rows. Returns the launch counts of the set-up +
-    cold prove + verify, their ntt_level bodies, and the warm prove:
-    {"counts", "ntt_bodies", "mont_mul_bodies" (its launches), "proof"
-    (its bytes, serialized before the tamper), "wall", "prover",
-    "witness", "props"}."""
+    instance: into_arp() gives (witness, props); native: whether the
+    witness must come from the native chain as a packed array; ntt_bodies:
+    the ntt_level bodies the path may run, the first of which it must run.
+    Returns the launch counts of the set-up + cold prove + verify, their
+    ntt_level bodies, and the warm prove: {"counts", "ntt_bodies",
+    "mont_mul_bodies" (its launches), "proof" (its bytes, serialized before
+    the tamper), "wall", "peaks" (cold, warm, GiB), "prover", "witness",
+    "props"}."""
     import numpy as np
     import torch
 
@@ -529,14 +674,16 @@ def phase_at_size(dev, label: str, model):
     from hodor_tpu_torch.prover import Prover
     from hodor_tpu_torch.verifier import Verifier
 
-    field = model.field
     t0 = time.perf_counter()
-    witness, props = model.into_arp()
-    if not model.native or not isinstance(witness, np.ndarray):
-        raise AssertionError(f"{label}: the 2^{LOG_ROWS}-row witness must come from the native "
-                             "chain as a packed array")
-    log(f"{label}: 2^{LOG_ROWS} rows, {props.num_registers} registers, "
-        f"witness (native chain, {witness.dtype} {witness.shape}) "
+    witness, props = into_arp()
+    rows = f"2^{props.num_rows.bit_length() - 1} rows"
+    packed = isinstance(witness, np.ndarray)
+    if native and not packed:
+        raise AssertionError(f"{label}: the {rows} witness must come from the native chain as a "
+                             "packed array")
+    log(f"{label}: {field.name}, {rows}, {props.num_registers} registers, lde {lde_factor}, "
+        f"fri_final_degree_plus_one {fri_final_degree_plus_one}, witness "
+        f"({f'native chain, {witness.dtype} {witness.shape}' if packed else 'Python lists'}) "
         f"{time.perf_counter() - t0:.3f} s")
 
     torch.cuda.synchronize()
@@ -544,16 +691,17 @@ def phase_at_size(dev, label: str, model):
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev)
+    prover = Prover(props.clone(), lde_factor=lde_factor,
+                    fri_final_degree_plus_one=fri_final_degree_plus_one, device=dev)
     torch.cuda.synchronize()
     log(f"{label}: prover set-up {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     proof = prover.prove(witness)
     cold = time.perf_counter() - t0
-    verifier = Verifier(props, lde_factor=16)
+    verifier = Verifier(props, lde_factor=lde_factor)
     t0 = time.perf_counter()
     if not verifier.verify(proof):
-        raise AssertionError(f"{label}: the verifier rejects the 2^{LOG_ROWS}-row proof")
+        raise AssertionError(f"{label}: the verifier rejects the {rows} proof")
     verify_s = time.perf_counter() - t0
     counts = dict(K.launch_counts)
     bodies = dict(K.ntt_level_body_counts)
@@ -562,9 +710,10 @@ def phase_at_size(dev, label: str, model):
     log(f"{label}: verify {verify_s:.3f} s -> accepted")
     log(f"{label}: launches in set-up + cold prove + verify: {json.dumps(counts)}")
     log(f"{label}: ntt_level launches by body: {json.dumps(bodies)}")
-    if bodies["mma"] == 0 or bodies["mma"] + bodies["limb"] != counts["ntt_level"]:
-        raise AssertionError(f"{label}: the 2^{LOG_ROWS}-row path must run the tensor-core "
-                             f"body of ntt_level, got {bodies} of {counts['ntt_level']}")
+    if bodies[ntt_bodies[0]] == 0 or sum(bodies[b] for b in ntt_bodies) != counts["ntt_level"]:
+        raise AssertionError(f"{label}: the path must run the {ntt_bodies[0]!r} body of ntt_level "
+                             f"and no body but {ntt_bodies}, got {bodies} of "
+                             f"{counts['ntt_level']}")
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -574,9 +723,12 @@ def phase_at_size(dev, label: str, model):
     peak_warm = torch.cuda.max_memory_allocated()
     warm_run = {"counts": dict(K.launch_counts), "ntt_bodies": dict(K.ntt_level_body_counts),
                 "mont_mul_bodies": dict(K.mont_mul_body_counts),
-                "proof": serialize_proof(proof, field), "wall": warm, "prover": prover,
+                "proof": serialize_proof(proof, field), "wall": warm,
+                "peaks": (peak_cold / 2**30, peak_warm / 2**30), "prover": prover,
                 "witness": witness, "props": props}
     log(f"{label}: warm prove {warm:.3f} s (stage walls: {prover.last_timings.to_json()})")
+    log(f"{label}: launches in the warm prove: {json.dumps(warm_run['counts'])}, ntt_level by "
+        f"body {json.dumps(warm_run['ntt_bodies'])}")
     log(f"{label}: peak device memory cold {peak_cold / 2**30:.3f} GiB, "
         f"warm {peak_warm / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
     torch.cuda.synchronize()
@@ -594,6 +746,75 @@ def phase_at_size(dev, label: str, model):
     log(f"{label}: warm proof accepted; tampered f_at_z_m[0] rejected")
     require_launched(label, counts, MAIN_PATH_KERNELS)
     return counts, bodies, warm_run
+
+
+def six_registers(field, rows: int):
+    """tests/test_multi_register.py's instance at `rows` rows: a0[i+1] =
+    a0[i] + 1 and a_r[i+1] = a_r[i] a_{r-1}[i] for r = 1..5 (polyvariate,
+    across registers), dense; boundaries at row 0 and a5's last row. The
+    witness is a host loop of 5 products a row."""
+    from hodor_tpu_torch import air
+    from hodor_tpu_torch.arp import InstanceProperties
+
+    p = field.p
+    regs = [air.Register.Register(i) for i in range(6)]
+
+    def at(r, steps):
+        return air.UnivariateTerm(1, regs[r], air.StepDifference.Steps(steps), 1)
+
+    c = air.Constraint(density=air.DenseConstraint())
+    c += at(0, 1)
+    c -= at(0, 0)
+    c -= 1
+    constraints = [c]
+    for r in range(1, 6):
+        c = air.Constraint(density=air.DenseConstraint())
+        c += at(r, 1)
+        c -= air.PolyvariateTerm(coeff=1, terms=[at(r, 0), at(r - 1, 0)], total_degree=2)
+        constraints.append(c)
+    cols = [[0] * rows for _ in range(6)]
+    cols[0][0] = 2
+    for r in range(1, 6):
+        cols[r][0] = r + 1
+    for i in range(rows - 1):
+        cols[0][i + 1] = (cols[0][i] + 1) % p
+        for r in range(1, 6):
+            cols[r][i + 1] = cols[r][i] * cols[r - 1][i] % p
+    boundary = [air.BoundaryConstraint(regs[r], 0, cols[r][0]) for r in range(6)]
+    boundary.append(air.BoundaryConstraint(regs[5], rows - 1, cols[5][-1]))
+    return cols, InstanceProperties(num_rows=rows, num_registers=6, constraints=constraints,
+                                    boundary_constraints=boundary, field=field)
+
+
+def repeated_sparse(field, rows: int, seed: int = 5):
+    """tests/test_density_repeated_sparse.py's instance at `rows` rows: a[i+1]
+    = a[i]^2 + 1 at the even rows (Repeated(0, 1, 2)), b[i+1] = 3 b[i] at
+    rows 1 and 4 (Sparse). Its first 8 rows are the 8-row fixture's; every
+    value that no rule fixes is drawn from `seed`."""
+    import random
+
+    from hodor_tpu_torch import air
+    from hodor_tpu_torch.arp import InstanceProperties
+
+    p = field.p
+    rng = random.Random(seed)
+    r0, r1 = air.Register.Register(0), air.Register.Register(1)
+    c0 = air.Constraint(density=air.RepeatedConstraint(start_at=0, span=1, interval=2))
+    c0 += air.UnivariateTerm(1, r0, air.StepDifference.Steps(1), 1)
+    c0 -= air.UnivariateTerm(1, r0, air.StepDifference.Steps(0), 1).pow(2)
+    c0 -= 1
+    c1 = air.Constraint(density=air.SparseConstraint(rows=(1, 4)))
+    c1 += air.UnivariateTerm(1, r1, air.StepDifference.Steps(1), 1)
+    c1 -= air.UnivariateTerm(1, r1, air.StepDifference.Steps(0), 1).scaled(3)
+    a = [3, 0, 7, 0, 2, 0, 9, 0] + [rng.randrange(p) for _ in range(rows - 8)]
+    for i in range(0, rows - 1, 2):
+        a[i + 1] = (a[i] * a[i] + 1) % p
+    b = [2, 5, 0, 7, 4, 0, 8, 6] + [rng.randrange(p) for _ in range(rows - 8)]
+    b[2] = 3 * b[1] % p
+    b[5] = 3 * b[4] % p
+    boundary = [air.BoundaryConstraint(r0, 0, a[0]), air.BoundaryConstraint(r1, 0, b[0])]
+    return [a, b], InstanceProperties(num_rows=rows, num_registers=2, constraints=[c0, c1],
+                                      boundary_constraints=boundary, field=field)
 
 
 def phase_witness_forms(dev) -> None:
@@ -883,7 +1104,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.field import F_BLS, F_P63, F_STARK
     from hodor_tpu_torch.field import kernels as K
     from hodor_tpu_torch.models import VDF, CubicVDF
     from hodor_tpu_torch.utils.native import build_host_library
@@ -908,8 +1129,8 @@ def main() -> int:
     records = phase_kernels(dev)
     phase_goldens(dev)
     rows = (1 << LOG_ROWS) - 1
-    main_counts, main_bodies, main_warm = phase_at_size(dev, "main path, quadratic VDF",
-                                                        VDF(F_STARK, 1, 2, rows))
+    main_counts, main_bodies, main_warm = phase_at_size(dev, "main path, quadratic VDF", F_STARK,
+                                                        VDF(F_STARK, 1, 2, rows).into_arp)
     paths = {"quadratic VDF 2^20 (main path)": main_counts}
     log(f"main path: mont_mul launches of set-up + cold prove + verify {main_counts['mont_mul']} "
         "(a static power, inv_fermat among them, is one launch)")
@@ -918,13 +1139,36 @@ def main() -> int:
     paths[f"quadratic VDF 2^{LOG_ROWS} prove_batch B=2 (warm)"] = phase_batch(dev, main_warm)
     del main_warm
     phase_witness_forms(dev)
-    paths["cubic VDF 2^20"] = phase_at_size(dev, "cubic VDF", CubicVDF(F_STARK, 1, 1, rows))[0]
+    paths["cubic VDF 2^20"] = phase_at_size(dev, "cubic VDF", F_STARK,
+                                            CubicVDF(F_STARK, 1, 1, rows).into_arp)[0]
     form_counts, fused_bodies = phase_level_forms(dev)
     for impl, counts in form_counts.items():
         paths[f"quadratic VDF 2^{LOG_ROWS_LEVEL_FORMS}, level form {impl}"] = counts
     paths[f"quadratic VDF 2^{LOG_ROWS_BATCH_SMALL} prove_batch B=4 (warm)"] = \
         phase_batch_small(dev, LOG_ROWS_BATCH_SMALL)
     phase_support(dev, LOG_ROWS_LEVEL_FORMS)
+    # phases 10-12: off the goldens' ground; each phase's prover is let go
+    # when it returns
+    off_ground = (
+        ("F_BLS quadratic VDF 2^20, lde 16", F_BLS, VDF(F_BLS, 1, 2, rows).into_arp,
+         dict(ntt_bodies=("limb",))),
+        ("F_P63 quadratic VDF 2^20, lde 8, FRI to degree 4", F_P63,
+         VDF(F_P63, 1, 2, rows).into_arp,
+         dict(lde_factor=8, fri_final_degree_plus_one=4, ntt_bodies=("limb",))),
+        ("six registers 2^20, lde 8", F_STARK, lambda: six_registers(F_STARK, 1 << LOG_ROWS),
+         dict(native=False, lde_factor=8)),
+        (f"Repeated/Sparse 2^{LOG_ROWS_LEVEL_FORMS}, lde 8", F_STARK,
+         lambda: repeated_sparse(F_STARK, 1 << LOG_ROWS_LEVEL_FORMS),
+         dict(native=False, lde_factor=8)),
+    )
+    off_ground_bodies = {}
+    for label, fld, into_arp, options in off_ground:
+        paths[label], off_ground_bodies[label], warm = phase_at_size(dev, label, fld, into_arp,
+                                                                     **options)
+        summary = {"warm_s": warm["wall"], "peak_gib": warm["peaks"],
+                   "warm_launches": warm["counts"], "proof_bytes": len(warm["proof"])}
+        log(f"{label}: summary {json.dumps(summary)}")
+        del warm
     never = [k for k in K.KERNELS if not any(c[k] for c in paths.values())]
     if never:
         raise AssertionError(f"kernels no path launched: {never}")
@@ -948,6 +1192,7 @@ def main() -> int:
         })
         if name == "ntt_level":
             kernels[-1]["launches_by_body"] = main_bodies
+            kernels[-1]["launches_by_body_off_ground"] = off_ground_bodies
             kernels[-1]["contraction"] = "hodor_tpu_torch/csrc/byte_plane_mma.cuh"
         if name == "dft_reduce":
             kernels[-1]["launches_by_body"] = fused_bodies

@@ -26,7 +26,7 @@ class ProofSystemConfig:
 
     mesh: the devices to shard the prover's evaluation-domain axes over.
     The port runs on one device: anything but None raises until the
-    multi-device work of ROADMAP.md (Queue 1, item 5) lands.
+    multi-device work of ROADMAP.md (Queue 1, item 7) lands.
     """
 
     lde_factor: int = 16
@@ -52,4 +52,4 @@ class ProofSystemConfig:
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh: the port proves on one device; sharding over several is "
-                "ROADMAP.md Queue 1 item 5 (multi-device), not ported yet")
+                "ROADMAP.md Queue 1 item 7 (multi-device), not ported yet")

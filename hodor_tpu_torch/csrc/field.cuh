@@ -184,6 +184,20 @@ __device__ __forceinline__ void mont_mul_words(uint32_t (&r)[NW], const uint32_t
 // u = t * 2^(-32 NW) mod p for the integer t < radix * p^2 held in the
 // low 2 NW words of t (t[2 NW] must be 0; it takes the carry of t + m p):
 // one word-serial Montgomery reduction, then the level's subtract chain.
+//
+// u is kept in NW words and t[2 NW] is dropped, so (t + m p) / R must stay
+// below R = 2^(32 NW). max_radix's test, radix * p^2 < R^2
+// (ntt/matmul.py), bounds t alone, not t + m p with m up to R - 1. What
+// keeps u below R for a DFT level is the matrix: in Montgomery form w^j
+// and w^(j + S/2) = -w^j sum to p, so a row of W sums to at most
+// (S/2) p (row 0 to S (R mod p)), t <= (S/2) p (p - 1) and
+// u <= ((S/2) p (p - 1) + (R - 1) p) / R. At S = 4 that leaves
+// R - u_max = 9.0e10 against R = 1.8e19 for F_P63 (R/p = 2.00), and
+// u_max / R = 0.86 for F_BLS (R/p = 2.21); the fields with more room
+// (F_STARK, F257) take larger radices. tests/test_torch_cuda.py
+// test_level_kernels_at_worst_case_inputs and chip_smoke.py phase 3 run
+// the level kernels at every x = p - 1 against the plain version, which
+// keeps the top word.
 template <int NW>
 __device__ __forceinline__ void mont_reduce_wide(uint32_t (&u)[NW], uint32_t (&t)[2 * NW + 1],
                                                  const LevelConsts& lc) {

@@ -39,7 +39,14 @@
 //
 // Both end the same way: one word-serial Montgomery reduction and the
 // conditional-subtract chain derived from the bound bring t below p
-// (hodor_tpu/ntt/matmul.py _reduction_chain), then the twiddle.
+// (hodor_tpu/ntt/matmul.py _reduction_chain), then the twiddle. The
+// reduction keeps u in NW words; why that holds for the fields whose top
+// word is nearly full (F_BLS, F_P63, at S = 4 and 2 only), and the test
+// at every x = p - 1 that holds it, are at field.cuh mont_reduce_wide.
+//
+// At S = 4 (S = 2) the limb body's 8 x 32 tile leaves half (three
+// quarters) of a block's threads without an output and as much of each
+// 8-j step zero padding: slow, not wrong.
 #include "byte_plane_mma.cuh"
 #include "field.cuh"
 

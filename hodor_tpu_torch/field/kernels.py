@@ -33,11 +33,11 @@ lane with its own challenge, all lanes in one launch.
 
 Every wrapper dispatches on the device of its tensors and nothing else:
 a CPU tensor takes the plain version beside it (int64 torch ops, the
-same function), a CUDA tensor launches the kernel or raises. The
-kernels are compiled by nvcc from `csrc/` (one nvcc per source, all
-started together) into one shared library under `build/` at the repo
-root on first use, keyed by a hash of the sources, and bound with
-ctypes. `launch_counts` counts each wrapper's launches.
+same function; mont_pow's on Python ints), a CUDA tensor launches the
+kernel or raises. The kernels are compiled by nvcc from `csrc/` (one
+nvcc per source, all started together) into one shared library under
+`build/` at the repo root on first use, keyed by a hash of the sources,
+and bound with ctypes. `launch_counts` counts each wrapper's launches.
 
 Field arrays are (..., n16) int32 holding 16-bit Montgomery limbs;
 Blake2s words are int32 holding u32 bit patterns.
@@ -454,15 +454,18 @@ def mont_mul(field: Field, a, b, out=None):
 
 
 def mont_pow_plain(field: Field, x, e: int):
-    """x^e by MSB-first square-and-multiply on the plain product, from
-    the Montgomery one (the result for e = 0)."""
-    acc = torch.as_tensor(_int_limbs(field.R_mod_p, field.n16), device=x.device)
-    acc = acc.to(torch.int32).expand(x.shape)
-    for i in reversed(range(e.bit_length())):
-        acc = mont_mul_plain(field, acc, acc)
-        if (e >> i) & 1:
-            acc = mont_mul_plain(field, acc, x)
-    return acc.contiguous()
+    """x^e in Montgomery form on Python ints, element by element: for
+    x = a R mod p the result is a^e R = x^e R^(1 - e) mod p (the Montgomery
+    one for e = 0). A square-and-multiply over the plain product costs
+    about 1.5 log2(e) sequential tensor products; this is one modular
+    power an element."""
+    p, n16 = field.p, field.n16
+    limbs = x.detach().cpu().numpy().astype("<u2").reshape(-1, n16)
+    scale = pow(field.R, 1 - e, p)
+    out = b"".join((pow(int.from_bytes(row.tobytes(), "little"), e, p) * scale % p)
+                   .to_bytes(2 * n16, "little") for row in limbs)
+    words = np.frombuffer(out, dtype="<u2").astype(np.int32).reshape(x.shape)
+    return torch.from_numpy(words).to(x.device)
 
 
 def mont_pow(field: Field, x, e: int):
@@ -547,24 +550,26 @@ def u32_to_i32(t64):
     return torch.where(t64 >= (1 << 31), t64 - (1 << 32), t64).to(torch.int32)
 
 
-def blake2s_plain(m_words, message_bytes: int, midstate: Sequence[int]):
-    """Keyed Blake2s of one final block per message, from the post-key
-    midstate; m_words (..., message_bytes // 4) int32 -> (..., 8) int32."""
-    lead = m_words.shape[:-1]
-    dev = m_words.device
-    w = m_words.to(torch.int64) & _M32
-    msg = [w[..., k] if k < w.shape[-1] else torch.zeros(lead, dtype=torch.int64, device=dev)
-           for k in range(16)]
-
-    def full(c):
-        return torch.full(lead, c, dtype=torch.int64, device=dev)
+def blake2s_compress_plain(h, m, t: int, final: bool):
+    """One Blake2s compression (RFC 7693's F) of (..., 16) message words
+    from (..., 8) states, both int32 or int64 tensors carrying u32 bit
+    patterns, broadcast against each other; t the byte counter, final
+    whether this is the last block. -> (..., 8) int32."""
+    dev = m.device
+    lead = torch.broadcast_shapes(h.shape[:-1], m.shape[:-1])
+    h = (h.to(torch.int64) & _M32).expand(lead + (8,))
+    m = (m.to(torch.int64) & _M32).expand(lead + (16,))
+    msg = [m[..., k] for k in range(16)]
 
     def rotr(x, r):
         return ((x >> r) | (x << (32 - r))) & _M32
 
-    v = [full(int(midstate[i])) for i in range(8)] + [full(c) for c in IV]
-    v[12] = v[12] ^ ((64 + message_bytes) & _M32)
-    v[14] = v[14] ^ _M32
+    v = [h[..., i] for i in range(8)] + [torch.full(lead, c, dtype=torch.int64, device=dev)
+                                         for c in IV]
+    v[12] = v[12] ^ (t & _M32)
+    v[13] = v[13] ^ ((t >> 32) & _M32)
+    if final:
+        v[14] = v[14] ^ _M32
 
     def g(a, b, c, d, x, y):
         v[a] = (v[a] + v[b] + x) & _M32
@@ -586,8 +591,16 @@ def blake2s_plain(m_words, message_bytes: int, midstate: Sequence[int]):
         g(1, 6, 11, 12, msg[s[10]], msg[s[11]])
         g(2, 7, 8, 13, msg[s[12]], msg[s[13]])
         g(3, 4, 9, 14, msg[s[14]], msg[s[15]])
-    out = torch.stack([int(midstate[i]) ^ v[i] ^ v[i + 8] for i in range(8)], dim=-1)
-    return u32_to_i32(out)
+    return u32_to_i32(torch.stack([h[..., i] ^ v[i] ^ v[i + 8] for i in range(8)], dim=-1))
+
+
+def blake2s_plain(m_words, message_bytes: int, midstate: Sequence[int]):
+    """Keyed Blake2s of one final block per message, from the post-key
+    midstate; m_words (..., message_bytes // 4) int32 -> (..., 8) int32."""
+    m = torch.zeros(m_words.shape[:-1] + (16,), dtype=torch.int64, device=m_words.device)
+    m[..., :m_words.shape[-1]] = m_words
+    h = torch.tensor(list(midstate), dtype=torch.int64, device=m_words.device)
+    return blake2s_compress_plain(h, m, 64 + message_bytes, True)
 
 
 def blake2s(m_words, message_bytes: int, midstate: Sequence[int]):
@@ -715,7 +728,13 @@ def _check_level_tw(field: Field, device, size: int, cols: int, tw) -> None:
 
 def _level_args(field: Field, radix: int, tw):
     """The trailing arguments the level kernels share: twiddle mode and
-    pointer, p, -p^-1 mod 2^32, the reduction chain and its length."""
+    pointer, p, -p^-1 mod 2^32, the reduction chain and its length.
+    Raises where a level's exact sums could outgrow the kernels' 2 n16
+    limbs: the radix must keep radix * p^2 < 2^(32 n16) (ntt/matmul.py
+    max_radix)."""
+    if radix * field.p * field.p >= 1 << (32 * field.n16):
+        raise ValueError(f"radix {radix} is above {field}'s bound radix * p^2 < "
+                         f"2^{32 * field.n16}")
     nw = field.n16 // 2
     chain = reduction_chain(field, radix)
     chain_words = [wd for m in chain for wd in _words(m, nw)]

@@ -14,6 +14,8 @@ other operation is composed from them and plain tensor ops.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -318,3 +320,22 @@ class LimbOps:
             a, b = lvl[..., :half, :], lvl[..., half:, :]
             inv = torch.cat([self.mul(inv, b), self.mul(inv, a)], dim=-2)
         return inv[..., :n, :]
+
+
+@lru_cache(maxsize=None)
+def _ops_for(field: Field, device: torch.device) -> LimbOps:
+    return LimbOps(field, device)
+
+
+def ops_for(field: Field, device="cuda") -> LimbOps:
+    """The one LimbOps of `field` on `device` (the card unless the caller
+    asks for the CPU), shared by every caller in the process with its
+    tables. Raises where the device is CUDA and torch sees no card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"ops_for({field}, {device}): torch sees no CUDA device; "
+                               "pass device=\"cpu\" for the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return _ops_for(field, device)

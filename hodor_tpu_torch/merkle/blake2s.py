@@ -27,41 +27,12 @@ PERSONAL = b"Shaftoe"
 _IV = np.array(kernels.IV, dtype=np.uint32)
 
 
-def _rotr(x, r):
-    return (x >> np.uint32(r)) | (x << np.uint32(32 - r))
-
-
-def _compress_host(h, m, t: int, final: bool) -> np.ndarray:
-    """One Blake2s compression on the host (numpy uint32)."""
-    with np.errstate(over="ignore"):
-        v = [np.uint32(h[i]) for i in range(8)] + [np.uint32(c) for c in _IV]
-        v[12] = v[12] ^ np.uint32(t & 0xFFFFFFFF)
-        v[13] = v[13] ^ np.uint32((t >> 32) & 0xFFFFFFFF)
-        if final:
-            v[14] = v[14] ^ np.uint32(0xFFFFFFFF)
-
-        def g(a, b, c, d, x, y):
-            v[a] = v[a] + v[b] + x
-            v[d] = _rotr(v[d] ^ v[a], 16)
-            v[c] = v[c] + v[d]
-            v[b] = _rotr(v[b] ^ v[c], 12)
-            v[a] = v[a] + v[b] + y
-            v[d] = _rotr(v[d] ^ v[a], 8)
-            v[c] = v[c] + v[d]
-            v[b] = _rotr(v[b] ^ v[c], 7)
-
-        for r in range(10):
-            s = kernels.SIGMA[r]
-            mm = [np.uint32(m[s[i]]) for i in range(16)]
-            g(0, 4, 8, 12, mm[0], mm[1])
-            g(1, 5, 9, 13, mm[2], mm[3])
-            g(2, 6, 10, 14, mm[4], mm[5])
-            g(3, 7, 11, 15, mm[6], mm[7])
-            g(0, 5, 10, 15, mm[8], mm[9])
-            g(1, 6, 11, 12, mm[10], mm[11])
-            g(2, 7, 8, 13, mm[12], mm[13])
-            g(3, 4, 9, 14, mm[14], mm[15])
-        return np.array([h[i] ^ v[i] ^ v[i + 8] for i in range(8)], dtype=np.uint32)
+def compress(h, m, t: int, final: bool):
+    """One Blake2s compression: h (..., 8) state words, m (..., 16) message
+    words (little-endian), int32 tensors carrying u32 bit patterns, on
+    their device; t the total byte counter, final whether m is the last
+    block. -> (..., 8) int32 (hodor_tpu/merkle/blake2s.py compress)."""
+    return kernels.blake2s_compress_plain(h, m, t, final)
 
 
 def _param_words(digest_len: int, key_len: int, personal: bytes) -> np.ndarray:
@@ -77,9 +48,10 @@ def _param_words(digest_len: int, key_len: int, personal: bytes) -> np.ndarray:
 @lru_cache(maxsize=None)
 def keyed_midstate(key: bytes = KEY, personal: bytes = PERSONAL) -> tuple:
     """State h after absorbing the (constant) padded key block, as 8 ints."""
-    h0 = _IV ^ _param_words(32, len(key), personal)
-    key_block = np.frombuffer(key.ljust(64, b"\x00"), dtype="<u4")
-    return tuple(int(v) for v in _compress_host(h0, key_block, t=64, final=False))
+    h0 = (_IV ^ _param_words(32, len(key), personal)).astype(np.int64)
+    key_block = np.frombuffer(key.ljust(64, b"\x00"), dtype="<u4").astype(np.int64)
+    h = compress(torch.from_numpy(h0), torch.from_numpy(key_block), t=64, final=False)
+    return tuple(int(v) & 0xFFFFFFFF for v in h)
 
 
 def hash_block(m_words, message_bytes: int):

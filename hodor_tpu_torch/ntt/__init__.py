@@ -1,8 +1,9 @@
 """Number-theoretic transforms on the device.
 
 All functions take and return Montgomery limb tensors of shape
-(..., N, n16). Every transform of length >= 2 runs through the radix-128
-levels of ntt/matmul.py; its canonical output equals the JAX package's
+(..., N, n16). Every transform of length >= 2 runs through the radix
+levels of ntt/matmul.py (radix 128, or 4 for the fields whose wide sums
+allow no more); its canonical output equals the JAX package's
 radix-2, Pease and matmul forms alike. The LDE is the reference's
 `lde_using_multiple_cosets` (src/polynomials/mod.rs:418-482): one size-T
 NTT per coset, interleaved into natural order on the blown-up domain.
@@ -10,9 +11,21 @@ NTT per coset, interleaved into natural order on the blown-up domain.
 
 from __future__ import annotations
 
+import torch
+
 from ..domain import Domain
 from ..field.limbs import LimbOps
-from .matmul import ntt_matmul
+from .matmul import intt_matmul, ntt_matmul
+
+
+def bit_reverse_indices(log_n: int, device="cuda") -> torch.Tensor:
+    """(2^log_n,) int64 permutation on `device`: entry i is i with its
+    log_n bits reversed."""
+    idx = torch.arange(1 << log_n, device=device)
+    rev = torch.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
 
 
 def ntt(ops: LimbOps, a, inverse: bool = False):
@@ -26,9 +39,7 @@ def intt(ops: LimbOps, a):
     """Inverse NTT including the 1/N scale (reference Polynomial::ifft,
     src/polynomials/mod.rs:773-797), the scale folded into the terminal
     level."""
-    n = a.shape[-2]
-    minv = ops.const(ops.field.inv(n % ops.field.p))
-    return ntt_matmul(ops, a, inverse=True, scale=minv)
+    return intt_matmul(ops, a)
 
 
 def distribute_powers(ops: LimbOps, a, g_limbs):
@@ -98,3 +109,15 @@ def evaluate_at(ops: LimbOps, coeffs, x_limbs):
     coeffs: (N, L); x_limbs: (L,). Returns (L,)."""
     n = coeffs.shape[-2]
     return ops.sum_reduce(ops.mul(coeffs, ops.powers(x_limbs, n)), axis=-2)
+
+
+def evaluate_at_domain_for_degree_one(ops: LimbOps, c0_limbs, c1_limbs, domain_size: int,
+                                      coset: bool = False):
+    """c0 + c1 x over the 2^k domain of `domain_size` points, or its coset
+    by the field's multiplicative generator (reference
+    src/polynomials/mod.rs:229-258 and :260-290). c0_limbs, c1_limbs:
+    (L,) Montgomery scalars. Returns (domain_size, L)."""
+    domain = Domain.new_for_size(ops.field, domain_size)
+    start = ops.const(ops.field.generator) if coset else None
+    xs = ops.powers(ops.const(domain.generator), domain.size, start=start)
+    return ops.add(ops.mul(xs, c1_limbs), c0_limbs)

@@ -233,3 +233,10 @@ def ntt_matmul(ops: LimbOps, x, inverse: bool = False, scale=None):
     # natural order: out[k2*n1 + k1]
     out = outer.reshape(b, n1, n2, L).transpose(1, 2)
     return out.reshape(lead + (n, L))
+
+
+def intt_matmul(ops: LimbOps, x):
+    """Inverse NTT over axis -2 of (..., N, n16) with the 1/N scale, which
+    rides in the terminal level."""
+    n = x.shape[-2]
+    return ntt_matmul(ops, x, inverse=True, scale=ops.const(ops.field.inv(n % ops.field.p)))

@@ -1,12 +1,14 @@
 """Device-time breakdown of a warm 2^20-row VDF prove on one GPU.
 
-    python -m hodor_tpu_torch.tools.profile_prove [quadratic|cubic] [B]
+    python -m hodor_tpu_torch.tools.profile_prove [quadratic|cubic] [B] [F_STARK|F_BLS|F_P63]
 
 (the quadratic VDF unless the cubic is named; with B > 1, a
 `Prover.prove_batch` of B lanes, the starts of the lanes after the first
-under the first one's instance). Builds the kernels, sets up a prover (lde
-factor 16, FRI to a constant), runs one cold prove, then one warm prove
-without the profiler and one under `torch.profiler`. Prints:
+under the first one's instance; over F_STARK unless another field is
+named: F_BLS is chip_smoke.py phase 10's field). Builds the kernels,
+sets up a prover (lde factor 16, FRI to a constant), runs one cold
+prove, then one warm prove without the profiler and one under
+`torch.profiler`. Prints:
   - the card's name and power limit (nvidia-smi);
   - the witness chain's host seconds (`into_arp`: the native chain, which
     `witness="auto"` takes at this length) and `ARPInstance.encode_witness`
@@ -74,17 +76,20 @@ def main(argv) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.field import F_BLS, F_P63, F_STARK
     from hodor_tpu_torch.field import kernels as K
     from hodor_tpu_torch.models import VDF, CubicVDF
     from hodor_tpu_torch.prover import Prover
     from hodor_tpu_torch.utils.native import build_host_library
 
+    fields = {f.name: f for f in (F_STARK, F_BLS, F_P63)}
     which = argv[1] if len(argv) > 1 else "quadratic"
     lanes = int(argv[2]) if len(argv) > 2 and argv[2].isdigit() else 1
-    if which not in ("quadratic", "cubic") or len(argv) > 3 or not 1 <= lanes <= len(STARTS):
-        print("usage: python -m hodor_tpu_torch.tools.profile_prove [quadratic|cubic] [B], "
-              f"1 <= B <= {len(STARTS)}", file=sys.stderr)
+    field = fields.get(argv[3]) if len(argv) > 3 else F_STARK
+    if which not in ("quadratic", "cubic") or len(argv) > 4 or not 1 <= lanes <= len(STARTS) \
+            or field is None:
+        print("usage: python -m hodor_tpu_torch.tools.profile_prove [quadratic|cubic] [B] "
+              f"[{'|'.join(fields)}], 1 <= B <= {len(STARTS)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -98,11 +103,11 @@ def main(argv) -> int:
     build_host_library()
     steps = (1 << LOG_ROWS) - 1
     starts = ((1, 1),) + STARTS[1:] if which == "cubic" else STARTS
-    models = [VDF(F_STARK, c0, c1, steps) if which == "quadratic" else
-              CubicVDF(F_STARK, c0, c1, steps) for c0, c1 in starts[:lanes]]
+    models = [VDF(field, c0, c1, steps) if which == "quadratic" else
+              CubicVDF(field, c0, c1, steps) for c0, c1 in starts[:lanes]]
     t0 = time.perf_counter()
     witness, props = models[0].into_arp()
-    print(f"model: {which} VDF, {props.num_registers} registers; witness chain "
+    print(f"model: {which} VDF over {field.name}, {props.num_registers} registers; witness chain "
           f"({'native' if models[0].native else 'python'}) {time.perf_counter() - t0:.3f} s")
     witnesses = [witness] + [m.into_arp()[0] for m in models[1:]]
     prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device="cuda")

@@ -82,6 +82,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the host library builds and loads here (g++ present, the
+    build succeeds). Every other function of this module still raises
+    where it does not: nothing steps back to Python code."""
+    try:
+        _lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _words4(value: int) -> np.ndarray:
     return np.array([(value >> (64 * i)) & _MASK64 for i in range(4)], dtype=np.uint64)
 

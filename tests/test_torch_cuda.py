@@ -16,17 +16,25 @@ import os
 import pytest
 import torch
 
-from hodor_tpu_torch.field import F257, F_STARK, LimbOps
+from hodor_tpu_torch.field import F257, F_BLS, F_P63, F_STARK, LimbOps
 from hodor_tpu_torch.field import kernels as K
 from hodor_tpu_torch.merkle.blake2s import keyed_midstate
 from hodor_tpu_torch.ntt import intt, ntt
 from hodor_tpu_torch.ntt.matmul import (dft_matrix, dft_matrix_planes, encode_s8,
-                                        folded_dft_matrix)
+                                        folded_dft_matrix, max_radix)
 
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
-FIELDS = {"F_STARK": F_STARK, "F257": F257}
+FIELDS = {"F_STARK": F_STARK, "F257": F257, "F_BLS": F_BLS, "F_P63": F_P63}
+
+
+def _by_field(cases):
+    """(name, *case) for every field and every case whose radix (its
+    first entry) the field's level sums allow (ntt/matmul.py max_radix:
+    4 for F_BLS and F_P63)."""
+    return [(name, *case) for name in sorted(FIELDS) for case in cases
+            if case[0] <= max_radix(FIELDS[name])]
 
 
 @pytest.fixture(scope="module")
@@ -79,9 +87,9 @@ def test_blake2s_kernel(dev, message_bytes):
           K.blake2s_plain(words, message_bytes, mid))
 
 
-@pytest.mark.parametrize("size,cols,tw", [(2, 3, "table"), (8, 1, "scalar"), (64, 5, None),
-                                           (128, 7, "table"), (128, 1, "scalar")])
-@pytest.mark.parametrize("name", sorted(FIELDS))
+@pytest.mark.parametrize("name,size,cols,tw", _by_field(
+    [(2, 3, "table"), (4, 3, "table"), (4, 1, "scalar"), (4, 5, None), (8, 1, "scalar"),
+     (64, 5, None), (128, 7, "table"), (128, 1, "scalar")]))
 def test_ntt_level_kernel(dev, name, size, cols, tw):
     field = FIELDS[name]
     if size > 1 << field.S:
@@ -207,8 +215,8 @@ def test_fri_fold_kernel(dev, name, half):
         _same(vd, values)  # the operands are read, never written
 
 
-LEVEL_CASES = [(2, 3, 5, "table"), (8, 1, 37, "scalar"), (64, 5, 2, None),
-               (128, 7, 3, "table"), (128, 1, 33, "scalar")]
+LEVEL_CASES = [(2, 3, 5, "table"), (4, 3, 5, "table"), (4, 1, 7, None), (8, 1, 37, "scalar"),
+               (64, 5, 2, None), (128, 7, 3, "table"), (128, 1, 33, "scalar")]
 
 
 def _level_case(field, size, ccols, bsz, tw):
@@ -221,8 +229,7 @@ def _level_case(field, size, ccols, bsz, tw):
     return ops, x, w_s8, w_sum, t
 
 
-@pytest.mark.parametrize("size,ccols,bsz,tw", LEVEL_CASES)
-@pytest.mark.parametrize("name", sorted(FIELDS))
+@pytest.mark.parametrize("name,size,ccols,bsz,tw", _by_field(LEVEL_CASES))
 def test_wide_reduce_and_dft_reduce_kernels(dev, name, size, ccols, bsz, tw):
     field = FIELDS[name]
     ops, x, w_s8, w_sum, t = _level_case(field, size, ccols, bsz, tw)
@@ -416,3 +423,60 @@ def test_prove_batch_on_the_card(dev):
     got = [serialize_proof(p, F257) for p in card.prove_batch([witness, corrupted])]
     assert K.launch_counts["fri_fold"] > before
     assert got == want and got[0] != got[1]
+
+
+@pytest.mark.parametrize("size,cols,bsz,tw", [(4, 5, 3, "table"), (4, 1, 9, None),
+                                               (2, 1, 9, "scalar"), (2, 5, 3, "table")])
+@pytest.mark.parametrize("name", ["F_BLS", "F_P63"])
+def test_level_kernels_at_worst_case_inputs(dev, name, size, cols, bsz, tw):
+    """Every x = p - 1: the largest exact sums a level of these fields can
+    see, where the limb body keeps u = (t + m p) / R in n16 limbs and drops
+    the word above (csrc/field.cuh mont_reduce_wide). The three level
+    kernels against the plain version, which keeps that word."""
+    field = FIELDS[name]
+    ops = LimbOps(field, "cpu")
+    top = torch.as_tensor([((field.p - 1) >> (16 * i)) & 0xFFFF for i in range(field.n16)],
+                          dtype=torch.int32)
+    x = top.expand(bsz, size, cols, field.n16).contiguous()
+    t = {"table": top.expand(size, cols, field.n16).contiguous(), "scalar": top, None: None}[tw]
+    w = dft_matrix(ops, size, False)
+    want = K.ntt_level_plain(field, x, w, t)
+    td = None if t is None else t.to(dev)
+    _same(K.ntt_level(field, x.to(dev), w.to(dev), td, body="limb"), want)
+    w_s8, w_sum = folded_dft_matrix(ops, size, False)
+    x_s8 = encode_s8(x).contiguous()
+    _same(K.wide_reduce(field, K.dft_columns_plain(w_s8, w_sum, x_s8).to(dev), size, td), want)
+    _same(K.dft_reduce(field, w_s8.to(dev), w_sum.to(dev), x_s8.to(dev), size, td), want)
+
+
+@pytest.mark.parametrize("log_n", [9, 10])
+def test_level_forms_agree_on_the_card_f_bls(dev, log_n):
+    """Radix-4 levels (radix 2 last at an odd log size) under each form."""
+    x = _canonical(F_BLS, (2, 1 << log_n), 26).to(dev)
+    outs = [(ntt(LimbOps(F_BLS, dev, impl), x), intt(LimbOps(F_BLS, dev, impl), x))
+            for impl in ("level", "two_step", "fused")]
+    for fwd, inv in outs[1:]:
+        _same(fwd, outs[0][0])
+        _same(inv, outs[0][1])
+
+
+@pytest.mark.parametrize("name,lde_factor,fri", [("F_BLS", 16, 1), ("F_P63", 8, 4)])
+def test_proof_bytes_on_the_card_equal_the_cpu(dev, name, lde_factor, fri):
+    """A quadratic VDF of 2^10 rows: the card's proof bytes equal the CPU's
+    (which tests/test_torch_fields.py holds against the scalar oracle at 32
+    rows), and the card's proof verifies."""
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.verifier import Verifier
+
+    field = FIELDS[name]
+    witness, props = VDF(field, 1, 2, (1 << 10) - 1, witness="python").into_arp()
+    blobs = []
+    for device in (dev, "cpu"):
+        prover = Prover(props.clone(), lde_factor=lde_factor, fri_final_degree_plus_one=fri,
+                        device=device)
+        proof = prover.prove(witness)
+        blobs.append(serialize_proof(proof, field))
+        assert Verifier(props, lde_factor=lde_factor).verify(proof)
+    assert blobs[0] == blobs[1]
