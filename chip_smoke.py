@@ -67,7 +67,19 @@ Phases, each reported on its own line:
      degree 4 (fri_final_degree_plus_one = 4), native witness, the same;
  12. over F_STARK at lde factor 8, the same for the six-register instance
      with polyvariate cross-register terms at 2^20 rows (its witness a
-     Python loop, timed) and the Repeated/Sparse one at 2^16 rows.
+     Python loop, timed) and the Repeated/Sparse one at 2^16 rows;
+ 13. multi-device proving, Prover(mesh=...) over torch.distributed, the
+     quadratic VDF over F_STARK at lde 16 from the native witness: 13a
+     one rank over NCCL in this process at 2^20 rows, 13b two ranks
+     sharing the card over gloo at 2^20 rows, 13c four ranks over gloo at
+     2^16 rows (spawned processes; the kernels built above are loaded,
+     not built again). Every rank's proof must equal the single-device
+     proof of the same witness (phase 5's at 2^20), verify, and have its
+     tampered f_at_z_m[0] rejected; each rank's stage walls, peak device
+     memory and collective calls, bytes and seconds per stage, and rank
+     0's launches per kernel (set-up + cold prove), are printed. With
+     ranks sharing one card, gloo carries every exchange through host
+     memory: its seconds are not those of NVLink.
 Phase 8 runs right after phase 5, whose prover it reuses and then frees;
 every other phase lets its prover go when it returns. Every path of
 phases 5-12 zeroes the launch counts just before it runs and reads them
@@ -92,6 +104,7 @@ LOG_ROWS = 20
 LOG_ROWS_LEVEL_FORMS = 16
 LOG_ROWS_WITNESS_FORMS = 14
 LOG_ROWS_BATCH_SMALL = 18
+LOG_ROWS_MESH_W4 = 16
 
 # Published peaks of one H100 SXM: device memory 3.35 TB/s; int8 on the
 # tensor cores 1,979 TOP/s (a multiply-add is two operations); 32-bit
@@ -1096,6 +1109,124 @@ def phase_support(dev, log_rows: int) -> None:
         "to the device tree's")
 
 
+def phase_mesh_rank(mesh, device, log_rows: int) -> dict:
+    """One rank of phase 13: the quadratic VDF at 2^log_rows rows, lde 16,
+    under `mesh`: set-up and a cold prove (launch counts, peak), then a
+    warm prove (stage walls, collectives per stage, peak). Returns the
+    warm proof's bytes and the figures. The first launch loads the kernel
+    library the parent built."""
+    import torch
+
+    from hodor_tpu_torch import parallel as par
+    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+
+    witness, props = VDF(F_STARK, 1, 2, (1 << log_rows) - 1).into_arp()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    par.reset_collective_counts()
+    t0 = time.perf_counter()
+    prover = Prover(props, lde_factor=16, fri_final_degree_plus_one=1, device=device, mesh=mesh)
+    cold_proof = serialize_proof(prover.prove(witness), F_STARK)
+    cold = time.perf_counter() - t0
+    counts = dict(K.launch_counts)
+    ntt_bodies = dict(K.ntt_level_body_counts)
+    peak_cold = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof = serialize_proof(prover.prove(witness), F_STARK)
+    warm = time.perf_counter() - t0
+    if proof != cold_proof:
+        raise AssertionError("the warm and the cold proof differ")
+    return {"rank": mesh.get_local_rank(), "device": str(device), "proof": proof,
+            "setup_cold_s": cold, "warm_s": warm, "stages": prover.last_timings.to_json(),
+            "exchanges": prover.last_exchanges, "counts": counts,
+            "ntt_bodies": ntt_bodies,
+            "peak_gib": (peak_cold / 2**30, torch.cuda.max_memory_allocated() / 2**30)}
+
+
+def phase_mesh(dev, single_proof: bytes) -> dict:
+    """Phase 13: 13a W = 1 over NCCL in this process, 13b W = 2 and 13c
+    W = 4 over gloo in spawned ranks sharing the card. Returns rank 0's
+    launch counts per path."""
+    import torch
+    import torch.distributed as dist
+
+    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.parallel import make_mesh
+    from hodor_tpu_torch.parallel.multihost import init_multihost
+    from hodor_tpu_torch.proof_io import deserialize_proof, serialize_proof
+    from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.tools.dryrun import free_tcp_address, run_ranks
+    from hodor_tpu_torch.verifier import Verifier
+
+    def check(label, ranks, want, props):
+        for res in ranks:
+            log(f"{label}: rank {res['rank']} ({res['device']}): set-up + cold prove "
+                f"{res['setup_cold_s']:.3f} s, warm prove {res['warm_s']:.3f} s (stage walls: "
+                f"{res['stages']}); peak device memory cold {res['peak_gib'][0]:.3f} GiB, warm "
+                f"{res['peak_gib'][1]:.3f} GiB")
+            log(f"{label}: rank {res['rank']} collectives per stage of the warm prove: "
+                f"{json.dumps(res['exchanges'])}")
+            if res["proof"] != want:
+                raise AssertionError(f"{label}: rank {res['rank']}'s proof differs from the "
+                                     "single-device proof of the same witness")
+        verifier = Verifier(props, lde_factor=16)
+        proof = deserialize_proof(ranks[0]["proof"], F_STARK)
+        if not verifier.verify(proof):
+            raise AssertionError(f"{label}: the verifier rejects the mesh proof")
+        proof.f_at_z_m[0] = (proof.f_at_z_m[0] + 1) % F_STARK.p
+        if not rejected(verifier, proof):
+            raise AssertionError(f"{label}: the verifier accepts a tampered f_at_z_m[0]")
+        r0 = ranks[0]
+        log(f"{label}: every rank's proof equals the single-device proof ({len(want)} bytes), "
+            "verified; tampered f_at_z_m[0] rejected")
+        log(f"{label}: rank 0 launches in set-up + cold prove: {json.dumps(r0['counts'])}, "
+            f"ntt_level by body {json.dumps(r0['ntt_bodies'])}")
+        require_launched(label, r0["counts"], MAIN_PATH_KERNELS)
+        return r0["counts"]
+
+    paths = {}
+    _, props = VDF(F_STARK, 1, 2, (1 << LOG_ROWS) - 1).into_arp()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    label = f"13a mesh W=1 NCCL 2^{LOG_ROWS}"
+    t0 = time.perf_counter()
+    init_multihost(free_tcp_address(), 1, 0, "nccl", dev)
+    try:
+        res = phase_mesh_rank(make_mesh(1, dev), dev, LOG_ROWS)
+    finally:
+        dist.destroy_process_group()
+    log(f"{label}: phase {time.perf_counter() - t0:.2f} s")
+    paths[label] = check(label, [res], single_proof, props)
+    del res
+    torch.cuda.empty_cache()
+
+    label = f"13b mesh W=2 gloo one card 2^{LOG_ROWS}"
+    t0 = time.perf_counter()
+    ranks = run_ranks(phase_mesh_rank, 2, (LOG_ROWS,), device=dev.type, backend="gloo",
+                      timeout=420)
+    log(f"{label}: phase {time.perf_counter() - t0:.2f} s (spawn included)")
+    paths[label] = check(label, ranks, single_proof, props)
+
+    label = f"13c mesh W=4 gloo one card 2^{LOG_ROWS_MESH_W4}"
+    witness, props = VDF(F_STARK, 1, 2, (1 << LOG_ROWS_MESH_W4) - 1).into_arp()
+    want = serialize_proof(Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1,
+                                  device=dev).prove(witness), F_STARK)
+    t0 = time.perf_counter()
+    ranks = run_ranks(phase_mesh_rank, 4, (LOG_ROWS_MESH_W4,), device=dev.type, backend="gloo",
+                      timeout=300)
+    log(f"{label}: phase {time.perf_counter() - t0:.2f} s (spawn included)")
+    paths[label] = check(label, ranks, want, props)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1137,6 +1268,7 @@ def main() -> int:
     # phase 8 reuses phase 5's prover, then lets it go, so that no later
     # peak counts its tables
     paths[f"quadratic VDF 2^{LOG_ROWS} prove_batch B=2 (warm)"] = phase_batch(dev, main_warm)
+    main_proof = main_warm["proof"]
     del main_warm
     phase_witness_forms(dev)
     paths["cubic VDF 2^20"] = phase_at_size(dev, "cubic VDF", F_STARK,
@@ -1169,6 +1301,7 @@ def main() -> int:
                    "warm_launches": warm["counts"], "proof_bytes": len(warm["proof"])}
         log(f"{label}: summary {json.dumps(summary)}")
         del warm
+    paths.update(phase_mesh(dev, main_proof))
     never = [k for k in K.KERNELS if not any(c[k] for c in paths.values())]
     if never:
         raise AssertionError(f"kernels no path launched: {never}")

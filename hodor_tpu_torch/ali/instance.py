@@ -18,6 +18,14 @@ Constraint evaluation is one loop over the constraints and their terms
 for every batch size: eager PyTorch has no traced program whose size a
 scan would have to bound, and field sums are exact, so the values equal
 both of the JAX package's forms.
+
+Under a mesh (one rank of a torch.distributed job, parallel/) G's
+composition runs on this rank's row block of the constraints domain:
+the coset values and divisors keep only those rows, the term coset-LDEs
+go through `sharded_coset_lde_rows` and the interpolant through
+`sharded_icoset_ntt` (the JAX package's hooks and conditions,
+hodor_tpu/ali/instance.py:497-518), and DEEP gives row blocks of h1 and
+h2 on the blocks of the f- and g-LDEs.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from ..errors import DivisionByZeroError
 from ..field.field import Field
 from ..field.limbs import LimbOps, fetch_together
 from ..ntt import distribute_powers, evaluate_at, icoset_ntt, lde
+from ..parallel import gather_rows, local_rows, sharded_coset_lde_rows, sharded_icoset_ntt
 from ..transcript import Blake2sTranscript
 
 
@@ -62,11 +71,16 @@ def get_mask_from_boundary_constraint(masks: Dict[MaskProperties, None], bc) -> 
 class ALIInstance:
     """Precomputed ALI state + the two prover stages (G, DEEP)."""
 
-    def __init__(self, arp: ARPInstance):
+    def __init__(self, arp: ARPInstance, mesh=None):
+        """mesh: the DeviceMesh this rank proves under (parallel/), or
+        None on one device."""
         props = arp.properties
         self.properties = props
         self.field: Field = props.field
         self.ops: LimbOps = arp.ops
+        self.mesh = mesh
+        self._ranks = mesh.size() if mesh is not None else 1
+        self._rank = mesh.get_local_rank() if mesh is not None else 0
 
         self.max_constraint_power = max((c.degree for c in props.constraints), default=1)
         self.column_domain = Domain.new_for_size(self.field, props.num_rows)
@@ -119,11 +133,18 @@ class ALIInstance:
         field = self.field
         props = self.properties
         d_size = self.constraints_domain.size
+        if d_size % self._ranks:
+            raise ValueError(f"the constraints domain ({d_size} points) does not split "
+                             f"into {self._ranks} row blocks")
+        # under a mesh every table holds this rank's rows i of the D alone
+        rows = d_size // self._ranks
+        first = self._rank * rows
         g = self.column_domain.generator
+        gen = self.constraints_domain.generator
         coset = ops.powers(
-            ops.const(self.constraints_domain.generator), d_size,
-            start=ops.const(field.generator),
-        )  # (D, L)
+            ops.const(gen), rows,
+            start=ops.const(field.mul(field.generator, field.pow(gen, first))),
+        )  # (D/W, L): g_F w^i
 
         # vanishing-polynomial values per density batch over the coset
         # (air/density.py divisor form), inverted in one batch inverse;
@@ -164,7 +185,7 @@ class ALIInstance:
             broots = ops.encode([field.pow(g, r) for r in self._boundary_rows])
             diffs = ops.sub(coset[None, :, :], broots[:, None, :])
             nb = diffs.shape[0]
-            binv = ops.batch_inverse(diffs.reshape(nb * d_size, -1)).reshape(nb, d_size, -1)
+            binv = ops.batch_inverse(diffs.reshape(nb * rows, -1)).reshape(nb, rows, -1)
             for i, row in enumerate(self._boundary_rows):
                 self.boundary_divisors[row] = binv[i]
         self.coset_values = coset
@@ -189,8 +210,9 @@ class ALIInstance:
         return constraint_ch, boundary_ch
 
     def calculate_g(self, transcript: Blake2sTranscript, witness_coeffs):
-        """witness_coeffs: (R, T, L). Returns G in coefficient form (D, L).
-        Draws challenges from the transcript exactly like the reference."""
+        """witness_coeffs: (R, T, L). Returns G in coefficient form (D, L),
+        on every rank under a mesh. Draws challenges from the transcript
+        exactly like the reference."""
         constraint_ch, boundary_ch = self.draw_g_challenges(transcript)
         ops = self.ops
         return self._g_poly(
@@ -228,7 +250,7 @@ class ALIInstance:
         per boundary constraint (nb, L) or (nb, B, L)."""
         ops = self.ops
         field = self.field
-        d_size = self.constraints_domain.size
+        d_size = self.constraints_domain.size // self._ranks  # this rank's rows
         L = ops.n16
         power_hint = self.max_constraint_power  # LDE factor for term evaluation
 
@@ -241,7 +263,7 @@ class ALIInstance:
         # 2. batched coset-LDE of every distinct (mask, power) term
         #    (the memoized evaluate_univariate_term_into_values, :356-421)
         bases = torch.stack([masked[mi] for (mi, _pw) in self.term_ldes], dim=0)
-        base_ldes = lde(ops, bases, power_hint, coset=True)  # (K, [B,] D, L)
+        base_ldes = self._coset_lde(bases, power_hint)  # (K, [B,] D, L)
         term_vals = [ops.pow_static(base_ldes[k], pw)
                      for k, (_mi, pw) in enumerate(self.term_ldes)]
 
@@ -291,7 +313,7 @@ class ALIInstance:
             wstack = torch.stack([witness_coeffs[..., bc.register.index, :, :] for bc in bcs])
             bvals = ops.encode([bc.value % field.p for bc in bcs])  # (nb, L)
             wstack[..., 0, :] = ops.sub(wstack[..., 0, :], bvals.reshape((nb,) + lane_dims + (L,)))
-            cvals = lde(ops, wstack, power_hint, coset=True)  # (nb, [B,] D, L)
+            cvals = self._coset_lde(wstack, power_hint)  # (nb, [B,] D, L)
             adjustment = self.max_constraint_power - 1
             if adjustment == 0:
                 cvals = ops.mul(cvals, b_alphas[..., None, :])
@@ -304,7 +326,29 @@ class ALIInstance:
             g_values = ops.add(g_values, ops.sum_reduce(cvals, axis=0))
 
         # G interpolant (:526)
-        return icoset_ntt(ops, g_values)
+        return self._interpolant(g_values)
+
+    def _coset_lde(self, coeffs, factor: int):
+        """The term coset-LDE; under a mesh this rank's rows of it, the
+        T-point NTTs row-sharded where T >= 2W (the JAX package's
+        condition; the factor, max_constraint_power, is usually below W)."""
+        if self.mesh is None:
+            return lde(self.ops, coeffs, factor, coset=True)
+        t = coeffs.shape[-2]
+        if t % self._ranks == 0 and t >= 2 * self._ranks:
+            return sharded_coset_lde_rows(self.ops, coeffs, factor, self.mesh)
+        return local_rows(lde(self.ops, coeffs, factor, coset=True), self.mesh).clone()
+
+    def _interpolant(self, g_values):
+        """G's coefficients (D, L) from its values on the coset; under a
+        mesh from this rank's rows of them, the D-point inverse transform
+        row-sharded where D >= 2W, and the coefficients gathered onto every
+        rank (one all_gather), since the G-LDE takes them replicated."""
+        if self.mesh is None:
+            return icoset_ntt(self.ops, g_values)
+        if g_values.shape[-2] >= 2:
+            return gather_rows(sharded_icoset_ntt(self.ops, g_values, self.mesh), self.mesh)
+        return icoset_ntt(self.ops, gather_rows(g_values, self.mesh))
 
     # ---------------------------------------------------------------- DEEP
 
@@ -334,9 +378,11 @@ class ALIInstance:
         Port of calculate_deep (src/ali/per_register/deep.rs:14-148).
 
         witness_coeffs (R, T, L), f_ldes (R, N_f, L), g_poly (D, L),
-        g_lde (N_g, L)."""
+        g_lde (N_g, L); under a mesh f_ldes and g_lde are this rank's row
+        blocks, and so are the h1 and h2 returned."""
         ops = self.ops
-        z, alphas, roots = self._draw_deep(transcript, f_ldes.shape[-2], g_lde.shape[-2])
+        z, alphas, roots = self._draw_deep(transcript, f_ldes.shape[-2] * self._ranks,
+                                           g_lde.shape[-2] * self._ranks)
         return self._deep(witness_coeffs, f_ldes, g_poly, g_lde, ops.const(z),
                           ops.encode(alphas), ops.encode(roots))
 
@@ -348,7 +394,8 @@ class ALIInstance:
         it. Returns (h1 (B, N_f, L), h2 (B, N_g, L), f(mz) per lane, g(z)
         per lane), with one host fetch for all lanes."""
         ops = self.ops
-        drawn = [self._draw_deep(t, f_ldes_b.shape[-2], g_lde_b.shape[-2]) for t in transcripts]
+        drawn = [self._draw_deep(t, f_ldes_b.shape[-2] * self._ranks,
+                                 g_lde_b.shape[-2] * self._ranks) for t in transcripts]
         return self._deep(witness_coeffs_b, f_ldes_b, g_poly_b, g_lde_b,
                           ops.encode([z for z, _, _ in drawn]),
                           ops.encode([alphas for _, alphas, _ in drawn]),
@@ -393,10 +440,15 @@ class ALIInstance:
         return (h1_lde, h2_lde, [[int(v) for v in lane] for lane in f_host],
                 [int(v) for v in g_host])
 
-    def _domain_points(self, n: int):
-        """[1, w, w^2, ...] over the size-n domain, built once per LimbOps."""
-        key = ("domain_points", n)
+    def _domain_points(self, rows: int):
+        """w^i for this rank's `rows` rows i of the evaluation domain of
+        rows * W points (W = 1 on one device: [1, w, w^2, ...]), built once
+        per LimbOps."""
+        n = rows * self._ranks
+        first = self._rank * rows
+        key = ("domain_points", n, first)
         if key not in self.ops.tables:
-            dom = Domain.new_for_size(self.field, n)
-            self.ops.tables[key] = self.ops.powers(self.ops.const(dom.generator), n)
+            g = Domain.new_for_size(self.field, n).generator
+            start = self.ops.const(self.field.pow(g, first)) if first else None
+            self.ops.tables[key] = self.ops.powers(self.ops.const(g), rows, start=start)
         return self.ops.tables[key]

@@ -24,9 +24,9 @@ FRI_IMPLS = ("naive_on_values",)  # src/fri/fri_on_values.rs
 class ProofSystemConfig:
     """Everything the reference expressed as generics + scalars.
 
-    mesh: the devices to shard the prover's evaluation-domain axes over.
-    The port runs on one device: anything but None raises until the
-    multi-device work of ROADMAP.md (Queue 1, item 7) lands.
+    mesh: None, or the torch.distributed DeviceMesh (parallel.make_mesh)
+    whose ranks shard the prover's evaluation-domain axes; anything else
+    raises TypeError.
     """
 
     lde_factor: int = 16
@@ -50,6 +50,8 @@ class ProofSystemConfig:
         if self.fri_impl not in FRI_IMPLS:
             raise ValueError(f"unknown FRI impl {self.fri_impl!r}")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh: the port proves on one device; sharding over several is "
-                "ROADMAP.md Queue 1 item 7 (multi-device), not ported yet")
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(self.mesh, DeviceMesh):
+                raise TypeError(f"mesh must be None or a torch.distributed DeviceMesh, not "
+                                f"{type(self.mesh).__name__}")

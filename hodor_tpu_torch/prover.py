@@ -18,10 +18,18 @@ array of a stage carries a leading lane axis, one lane per proof, and
 each launch covers all lanes, so B proofs share one set of launches and
 host syncs instead of B sets (the port of hodor_tpu/prover.py
 prove_batch, which vmaps the same stages).
+
+`Prover(..., mesh=...)` proves as one rank of a torch.distributed job
+(parallel/): every rank runs `prove` on the same witness and returns the
+same proof. Stage 1 and stage G hold the f- and g-LDEs and their trees
+as row blocks (`sharded_lde`, `ShardedMerkleTree`); G's composition and
+DEEP run on row blocks (ali/instance.py); FRI runs on h1 and h2 gathered
+onto every rank, and the f and g openings come from the owners' blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional
 
@@ -37,6 +45,9 @@ from .fri import FRIProof, NaiveFriIop
 from .fri.fri import gather_chain_queries
 from .merkle.tree import IopQuery, MerkleTree, digest_to_bytes, fetch_roots
 from .ntt import lde
+from .parallel import (collective_snapshot, collectives_since, gather_rows, local_rows,
+                       sharded_lde)
+from .parallel.multihost import ShardedMerkleTree, sharded_openings
 from .profiling import StageTimer
 from .transcript import Blake2sTranscript, bytes_to_challenge_index
 
@@ -67,24 +78,60 @@ class Prover:
     @staticmethod
     def from_config(properties: InstanceProperties, config, device="cuda") -> "Prover":
         """Construct from a ProofSystemConfig (config.py), the runtime
-        analog of the reference's generic parameters, on `device`."""
+        analog of the reference's generic parameters, on `device` (this
+        rank's device under the config's mesh)."""
         return Prover(properties, lde_factor=config.lde_factor,
                       fri_final_degree_plus_one=config.fri_final_degree_plus_one,
-                      device=device)
+                      device=device, mesh=config.mesh)
 
     def __init__(self, properties: InstanceProperties, lde_factor: int,
-                 fri_final_degree_plus_one: int, device="cuda", ntt_impl: str = "level"):
+                 fri_final_degree_plus_one: int, device="cuda", ntt_impl: str = "level",
+                 mesh=None):
         """device: where the prove runs, the card unless the caller asks
         for "cpu". ntt_impl: the form of every NTT level of the prove,
         "level", "two_step" or "fused" (ntt/matmul.py); the proof bytes are
-        the same under all three."""
+        the same under all three. mesh: a DeviceMesh (parallel.make_mesh)
+        to prove over as one of its ranks, device being this rank's; the
+        proof bytes are those of one device."""
         self.field = properties.field
         self.device = torch.device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a mesh of {mesh.device_type} devices cannot prove on "
+                             f"{self.device}")
+        self.mesh = mesh
         self.ops = LimbOps(self.field, self.device, ntt_impl)
         self.arp = ARPInstance.from_instance(properties, self.ops)
-        self.ali = ALIInstance(self.arp)
+        self.ali = ALIInstance(self.arp, mesh)
         self.lde_factor = lde_factor
         self.fri_final_degree_plus_one = fri_final_degree_plus_one
+
+    def _lde(self, coeffs):
+        """The LDE of (..., T, L) coefficients by lde_factor; under a mesh
+        this rank's row block of it, the coset axis split over the ranks
+        where W divides the factor (hodor_tpu/prover.py:101-106)."""
+        if self.mesh is None:
+            return lde(self.ops, coeffs, self.lde_factor)
+        w = self.mesh.size()
+        if self.lde_factor % w == 0 and coeffs.shape[-2] % w == 0:
+            return sharded_lde(self.ops, coeffs, self.lde_factor, self.mesh)
+        return local_rows(lde(self.ops, coeffs, self.lde_factor), self.mesh).clone()
+
+    def _trees(self, values):
+        """The oracles of (R, N, L) values (this rank's (R, N/W, L) row
+        blocks under a mesh, one all_gather for all R roots)."""
+        if self.mesh is None:
+            return [MerkleTree.create(v, self.field) for v in values]
+        return ShardedMerkleTree.create_many(values, self.field, self.mesh)
+
+    @contextlib.contextmanager
+    def _stage(self, timer: StageTimer, name: str):
+        """A timed stage; under a mesh its collectives' calls, bytes and
+        seconds go into last_exchanges[name]."""
+        before = collective_snapshot()
+        with timer.stage(name):
+            yield
+        if self.mesh is not None:
+            self.last_exchanges[name] = collectives_since(before)
 
     def _rebuilt(self, values, saved_roots: List[bytes], stage: str) -> List[MerkleTree]:
         """Trees rebuilt from a checkpoint's saved values (a list of
@@ -108,6 +155,10 @@ class Prover:
         field = self.field
         ck, done = None, []
         if checkpoint_dir is not None:
+            if self.mesh is not None:
+                raise NotImplementedError(
+                    "checkpoint_dir under a mesh: not ported (ROADMAP.md Queue 1, "
+                    "\"checkpoint under a mesh\")")
             ck = ProveCheckpoint(checkpoint_dir)
             done = ck.completed_prefix()
         transcript = Blake2sTranscript(field)
@@ -115,6 +166,7 @@ class Prover:
         self.last_transcript = transcript
         timer = StageTimer(self.device)
         self.last_timings = timer
+        self.last_exchanges = {}
 
         def load(stage):
             nonlocal transcript
@@ -136,12 +188,12 @@ class Prover:
                                           "stage1")
                 f_iop_roots = [o.get_root() for o in f_oracles]
         else:
-            with timer.stage("witness+f_ldes+f_oracles"):
+            with self._stage(timer, "witness+f_ldes+f_oracles"):
                 w_dev = self.arp.encode_witness(witness)
                 witness_polys = self.arp.calculate_witness_polys(w_dev)  # (R, T, L)
                 del w_dev
-                f_ldes = lde(ops, witness_polys, self.lde_factor)  # (R, N_f, L)
-                f_oracles = [MerkleTree.create(f_ldes[r], field) for r in range(f_ldes.shape[0])]
+                f_ldes = self._lde(witness_polys)  # (R, N_f, L), (R, N_f/W, L) under a mesh
+                f_oracles = self._trees(f_ldes)
                 f_iop_roots = fetch_roots(f_oracles)
             for rb in f_iop_roots:
                 transcript.commit_bytes(rb)
@@ -161,10 +213,10 @@ class Prover:
                                             "stage_g")
                 g_iop_root = g_oracle.get_root()
         else:
-            with timer.stage("g_composition+g_oracle"):
+            with self._stage(timer, "g_composition+g_oracle"):
                 g_poly = self.ali.calculate_g(transcript, witness_polys)  # (D, L)
-                g_lde_vals = lde(ops, g_poly, self.lde_factor)
-                g_oracle = MerkleTree.create(g_lde_vals, field)
+                g_lde_vals = self._lde(g_poly)
+                (g_oracle,) = self._trees(g_lde_vals[None])
                 g_iop_root = g_oracle.get_root()
             transcript.commit_bytes(g_iop_root)
             if ck is not None:
@@ -180,7 +232,7 @@ class Prover:
                 h2_lde = limbs(arrays["h2_lde"])
                 f_at_z_m = [int(v) for v in meta["f_at_z_m"]]
         else:
-            with timer.stage("deep"):
+            with self._stage(timer, "deep"):
                 h1_lde, h2_lde, f_at_z_m, _g_at_z = self.ali.calculate_deep(
                     witness_polys, f_ldes, g_poly, g_lde_vals, transcript
                 )
@@ -208,7 +260,11 @@ class Prover:
                         self.lde_factor))
                 h1_proto, h2_proto = protos
         else:
-            with timer.stage("fri_h1+h2"):
+            with self._stage(timer, "fri_h1+h2"):
+                if self.mesh is not None:
+                    # the ladders run on every rank over the whole h1 and h2:
+                    # a fold pairs rows i and i + N/2, which lie on two ranks
+                    h1_lde, h2_lde = (gather_rows(h, self.mesh) for h in (h1_lde, h2_lde))
                 h1_proto, h2_proto = NaiveFriIop.proofs_from_ldes(
                     ops, [h1_lde, h2_lde], self.lde_factor, self.fri_final_degree_plus_one
                 )
@@ -241,17 +297,21 @@ class Prover:
         # 9+10. all query openings: both FRI chains' coset walks
         # (src/prover/mod.rs:142-143) and the f/g oracle openings
         # (:146-151), one gather and one fetch
-        with timer.stage("queries"):
+        with self._stage(timer, "queries"):
             h1_plan = NaiveFriIop.query_plan(h1_proto, h1_lde, x_h1)
             h2_plan = NaiveFriIop.query_plan(h2_proto, h2_lde, x_h2)
             chain_data = h1_plan[2] + h2_plan[2]
             idx_arrays = h1_plan[3] + h2_plan[3]
             x1 = torch.tensor([x_h1], dtype=torch.int64, device=self.device)
             x2 = torch.tensor([x_h2], dtype=torch.int64, device=self.device)
-            chain_data += [(o, f_ldes[r]) for r, o in enumerate(f_oracles)]
-            chain_data.append((g_oracle, g_lde_vals))
-            idx_arrays += [x1] * len(f_oracles) + [x2]
-            gathered = gather_chain_queries(chain_data, idx_arrays)
+            oracles = [(o, f_ldes[r], x1) for r, o in enumerate(f_oracles)]
+            oracles.append((g_oracle, g_lde_vals, x2))
+            if self.mesh is None:
+                gathered = gather_chain_queries(chain_data + [o[:2] for o in oracles],
+                                                idx_arrays + [o[2] for o in oracles])
+            else:
+                gathered = (gather_chain_queries(chain_data, idx_arrays)
+                            + sharded_openings(oracles, self.mesh))
             n1, n2 = len(h1_plan[2]), len(h2_plan[2])
             fri_proof_h1 = NaiveFriIop.proof_from_gathered(
                 h1_proto, h1_plan[0], h1_plan[1], gathered[:n1], ops
@@ -285,9 +345,11 @@ class Prover:
 
         B == 1, and an instance with no constraints or no boundary
         constraints, go to sequential prove() calls, as in the JAX
-        package."""
+        package; so does a batch under a mesh, which distributes each proof
+        and runs the proofs one after another (hodor_tpu/prover.py:466-484)."""
         props = self.arp.properties
-        if len(witnesses) == 1 or not props.constraints or not props.boundary_constraints:
+        if (self.mesh is not None or len(witnesses) == 1 or not props.constraints
+                or not props.boundary_constraints):
             return [self.prove(w) for w in witnesses]
         ops = self.ops
         field = self.field

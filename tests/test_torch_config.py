@@ -1,6 +1,6 @@
 """The port's ProofSystemConfig (hodor_tpu_torch.config) and
 Prover.from_config: the JAX package's validation cases, the same fields
-and registries, a mesh refused until the multi-device work lands, and
+and registries, a mesh that must be a torch.distributed DeviceMesh, and
 from_config giving the bytes of the Prover built by hand."""
 
 import dataclasses
@@ -8,12 +8,15 @@ import os
 
 import pytest
 import torch
+import torch.distributed as dist
 
 import hodor_tpu.config as jconfig
 import hodor_tpu_torch.air as tair
 import hodor_tpu_torch.config as config
 from hodor_tpu_torch.config import ProofSystemConfig
 from hodor_tpu_torch.field import F257
+from hodor_tpu_torch.parallel import make_mesh
+from hodor_tpu_torch.parallel.multihost import init_multihost
 from hodor_tpu_torch.proof_io import serialize_proof
 from hodor_tpu_torch.prover import Prover
 
@@ -47,9 +50,17 @@ def test_config_fields_and_registries_match_hodor_tpu():
     ProofSystemConfig(lde_factor=8)
 
 
-def test_a_mesh_is_refused_until_multi_device():
-    with pytest.raises(NotImplementedError, match="multi-device"):
+def test_a_mesh_is_refused_until_multi_device(tmp_path):
+    """Multi-device proving is here: a mesh that is no torch.distributed
+    DeviceMesh is refused, a DeviceMesh (one gloo rank) is taken."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ProofSystemConfig(mesh=object())
+    init_multihost(f"file://{tmp_path / 'store'}", 1, 0, "gloo", "cpu")
+    try:
+        mesh = make_mesh(1, "cpu")
+        assert ProofSystemConfig(mesh=mesh).mesh is mesh
+    finally:
+        dist.destroy_process_group()
 
 
 def test_prover_from_config_matches_direct():
