@@ -12,16 +12,18 @@ Phases, each reported on its own line:
   3. kernels: each of the seven kernels (and s8dot, the contraction of
      dft_reduce alone, and mont_pow, the static power in mont_mul.cu)
      against its plain PyTorch version on the card, on seeded random
-     canonical inputs at the shapes the prove gives it; ntt_level and
-     dft_reduce in both of their bodies (the tensor-core one and the
-     integer-pipe one) on the same inputs, timed in turn, dft_reduce also
+     canonical inputs at the shapes the prove gives it; ntt_level in its
+     three bodies (tensor cores, butterflies in registers, limbs on the
+     integer pipe: the one the wrapper picks against the plain version,
+     the others that take the shape beside it) and dft_reduce in both of
+     its bodies on the same inputs, timed in turn, dft_reduce also
      on ragged shapes, a 64-bit field and a random W that is no fold of a
      DFT matrix; s8dot at a bare launch's shape and at the fused level's
      product shape beside torch._int_mm; outputs must be bit-equal
      (tolerance 0: every output is canonical); the same at F_BLS's and
      F_P63's widths (16 and 4 limbs with a nearly full top word), the NTT
-     levels at the radix-4 and radix-2 shapes of their transforms, at
-     every x = p - 1 too;
+     levels at the radix-4 and radix-2 shapes of their transforms on the
+     butterfly body with the limb body beside it, at every x = p - 1 too;
      kernel and plain times from CUDA events after a warm-up, beside the
      least time the card could take (bytes over 3.35 TB/s or operations
      over the peak of their type, whichever is larger) and, where one
@@ -62,7 +64,7 @@ Phases, each reported on its own line:
      tree's;
  10. the quadratic VDF over F_BLS at 2^20 rows, lde factor 16, FRI to a
      constant, native witness, as phase 5: every ntt_level launch on the
-     limb body (radix 4, 2 last), none on the tensor-core one;
+     butterfly body (radix 4, 2 last), none on another;
  11. the quadratic VDF over F_P63 at 2^20 rows, lde factor 8, FRI to
      degree 4 (fri_final_degree_plus_one = 4), native witness, the same;
  12. over F_STARK at lde factor 8, the same for the six-register instance
@@ -85,7 +87,7 @@ every other phase lets its prover go when it returns. Every path of
 phases 5-12 zeroes the launch counts just before it runs and reads them
 just after, names the kernels it must have launched and prints the
 launches of each ntt_level body; the 2^20-row F_STARK paths must have run
-the tensor-core body.
+the tensor-core body, phases 10 and 11 the butterfly body alone.
 
 The line before the last holds the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -115,8 +117,8 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "int32": 67e12 / 4}
 
 # name -> (source, the TPU kernel it replaces). mont_mul.cu has two
 # entries, hodor_mont_mul and hodor_mont_pow (x^e in one launch, counted
-# with mont_mul); ntt_level.cu has two bodies, "mma" (the contraction of
-# csrc/byte_plane_mma.cuh on the int8 tensor cores) and "limb";
+# with mont_mul); ntt_level.cu has three bodies, "mma" (the contraction of
+# csrc/byte_plane_mma.cuh on the int8 tensor cores), "butterfly" and "limb";
 # dft_reduce.cu has two, "mma" and "dp4a", and the entry hodor_s8dot.
 KERNEL_INFO = {
     "mont_mul": ("hodor_tpu_torch/csrc/mont_mul.cu", "hodor_tpu/field/pallas_kernels.py:283"),
@@ -160,9 +162,18 @@ def ops_wide_reduce(n16: int) -> int:
 def ops_ntt_level(size: int, n16: int = 16) -> int:
     """int8 operations of one level output on the tensor cores: P x P byte
     products of depth S, a multiply-add two operations, P = 2 n16 byte
-    planes. The yardstick of both bodies: the card's least time for the
-    function is the tensor cores' whichever body runs."""
+    planes. The yardstick of every body: the card's least time for the
+    function is the tensor cores' or the bytes', whichever body runs."""
     return 2 * size * (2 * n16) ** 2
+
+
+def level_bodies(size: int):
+    """The bodies of ntt_level that take radix S by name at n16 = 16."""
+    from hodor_tpu_torch.field import kernels as K
+
+    return [b for b, sizes in (("mma", K.MMA_RADICES), ("butterfly", K.BUTTERFLY_RADICES),
+                               ("limb", range(1, 129)))
+            if size in sizes]
 
 
 def nbytes(*tensors) -> int:
@@ -332,12 +343,12 @@ def phase_kernels(dev):
 
     def level_case(case, xv, size, inverse, t, reps=5):
         """One level shape: the body the wrapper picks against the plain
-        version, and where that is the tensor-core body the limb body too."""
+        version, and the other bodies that take the shape beside it."""
         w = M.dft_matrix(ops, size, inverse)
         body = K.ntt_level_body(field, size)
         planes = M.dft_matrix_planes(ops, size, inverse) if body == "mma" else None
-        others = {"limb": lambda: K.ntt_level(field, xv, w, t, body="limb")} if body == "mma" \
-            else {}
+        others = {b: (lambda b=b: K.ntt_level(field, xv, w, t, body=b))
+                  for b in level_bodies(size) if b != body}
         before = dict(K.ntt_level_body_counts)
         compare("ntt_level", f"{case} [{body}]",
                 lambda: K.ntt_level(field, xv, w, t, w_planes=planes),
@@ -363,7 +374,7 @@ def phase_kernels(dev):
                True, ninv)
     for size in (64, 32, 16, 8):
         level_case(f"S={size} C=1 B=2^20/{size}", x.reshape(n // size, size, 1, field.n16),
-                   size, False, None)
+                   size, False, None, reps=20)
     # ragged edges of the tensor-core body's tile: C no multiple of 16 with
     # a batch boundary inside a tile, and a single column
     level_case("S=128 C=20 B=3 twiddle table", x[:3, :, :20].contiguous(), 128, False,
@@ -589,14 +600,19 @@ def kernel_cases_off_f_stark(dev, field, gen, compare, log_n: int = 20):
         for inputs in ("random", "all p-1") if worst else ("random",):
             x = random_canonical(field, (bsz, size, cols), gen, dev) if inputs == "random" \
                 else worst_case(field, (bsz, size, cols), dev)
-            before = K.ntt_level_body_counts["limb"]
+            body = K.ntt_level_body(field, size)
+            if body != "butterfly":
+                raise AssertionError(f"{tag} S={size}: ntt_level takes the {body} body")
+            before = K.ntt_level_body_counts[body]
             compare("ntt_level", f"{tag} S={size} B={bsz} C={cols} {tw_kind or 'no'} twiddle, "
-                    f"{inputs} [limb]",
+                    f"{inputs} [{body}]",
                     lambda: K.ntt_level(field, x, w, tw),
                     lambda: K.ntt_level_plain(field, x, w, tw),
-                    nbytes(x, w, tw), n * ops_ntt_level(size, n16), "int8", reps=5, plain_reps=1)
-            if K.ntt_level_body_counts["limb"] == before:
-                raise AssertionError(f"{tag} S={size}: the limb body did not launch")
+                    nbytes(x, w, tw), n * ops_ntt_level(size, n16), "int8", reps=20,
+                    plain_reps=1,
+                    other_bodies={"limb": lambda: K.ntt_level(field, x, w, tw, body="limb")})
+            if K.ntt_level_body_counts[body] == before:
+                raise AssertionError(f"{tag} S={size}: the {body} body did not launch")
     # the other two level forms at S = 4: the two-step reduce of the exact
     # columns, and dft_reduce (its __dp4a body: S < 32)
     x = random_canonical(field, (1, 4, quarter), gen, dev)
@@ -669,7 +685,7 @@ def require_launched(path: str, counts, names) -> None:
 
 
 def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_factor: int = 16,
-                  fri_final_degree_plus_one: int = 1, ntt_bodies=("mma", "limb")):
+                  fri_final_degree_plus_one: int = 1, ntt_bodies=("mma", "butterfly", "limb")):
     """Set-up, cold and warm prove, verify and a tampered proof for one
     instance: into_arp() gives (witness, props); native: whether the
     witness must come from the native chain as a packed array; ntt_bodies:
@@ -1283,10 +1299,10 @@ def main() -> int:
     # when it returns
     off_ground = (
         ("F_BLS quadratic VDF 2^20, lde 16", F_BLS, VDF(F_BLS, 1, 2, rows).into_arp,
-         dict(ntt_bodies=("limb",))),
+         dict(ntt_bodies=("butterfly",))),
         ("F_P63 quadratic VDF 2^20, lde 8, FRI to degree 4", F_P63,
          VDF(F_P63, 1, 2, rows).into_arp,
-         dict(lde_factor=8, fri_final_degree_plus_one=4, ntt_bodies=("limb",))),
+         dict(lde_factor=8, fri_final_degree_plus_one=4, ntt_bodies=("butterfly",))),
         ("six registers 2^20, lde 8", F_STARK, lambda: six_registers(F_STARK, 1 << LOG_ROWS),
          dict(native=False, lde_factor=8)),
         (f"Repeated/Sparse 2^{LOG_ROWS_LEVEL_FORMS}, lde 8", F_STARK,
@@ -1327,6 +1343,8 @@ def main() -> int:
             kernels[-1]["launches_by_body"] = main_bodies
             kernels[-1]["launches_by_body_off_ground"] = off_ground_bodies
             kernels[-1]["contraction"] = "hodor_tpu_torch/csrc/byte_plane_mma.cuh"
+            kernels[-1]["entries"] = ["hodor_ntt_level_mma", "hodor_ntt_level_butterfly",
+                                      "hodor_ntt_level"]
         if name == "dft_reduce":
             kernels[-1]["launches_by_body"] = fused_bodies
             kernels[-1]["entries"] = ["hodor_dft_reduce_mma", "hodor_dft_reduce", "hodor_s8dot"]

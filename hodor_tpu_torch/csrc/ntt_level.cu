@@ -6,7 +6,8 @@
 // scalar (the inverse transform's 1/N).
 //
 // Replaces: hodor_tpu/field/pallas_kernels.py pallas_ntt_level
-// (_ntt_level_kernel). Two bodies compute the same function:
+// (_ntt_level_kernel). Three bodies compute the same canonical limbs; the
+// wrapper (field/kernels.py ntt_level_body) picks one from n16 and S:
 //
 // hodor_ntt_level_mma, for 256-bit fields at S = 32, 64, 128: the TPU
 // kernel's byte-plane algebra on the int8 tensor cores
@@ -27,26 +28,53 @@
 // transposes them to one word per plane with byte permutes and stores the
 // 32 words bank-conflict free; no int8 copy of x reaches device memory.
 //
+// hodor_ntt_level_butterfly, for the small radices (S = 2, 4, 8) of
+// every field (n16 = 4 or 16): the F_BLS and F_P63 transforms (radix 4,
+// 2 last), the terminal levels of the others, the mesh's W-point NTTs.
+// Bound on the H100: bytes, x, the twiddle table and out once each (2 or
+// 3 x 64 bytes an output at n16 = 16); the operations are
+// (S/2) log2 S modular adds and subs and fewer Montgomery products per S
+// outputs. Design: two lanes own one column m = b C + c and hold it in
+// registers, S x NW words, loaded with 16-byte loads in which the pair
+// reads 32 contiguous bytes (neighbouring pairs on neighbouring c, or on
+// neighbouring b when C = 1) and completed by one shuffle; the first
+// radix-2 decimation-in-frequency stage gives one lane the sums, the
+// other the differences, and each runs the remaining log2 S - 1 stages
+// on canonical values (mod_add, mod_sub, mont_mul_words by a root),
+// multiplies its S/2 outputs by the twiddle and stores them in natural k
+// order (the bit reversal is register indexing), the pair again writing
+// 32 contiguous bytes. The points of the limb body it answers: no block
+// tile and no idle thread or zero padding at any S (1); no wide sum, so
+// neither mont_reduce_wide nor the chain nor the bound radix * p^2 <
+// 2^(32 n16) enters, and S = 2 is one add and one sub, S = 4 one product
+// a column (2); no shared memory and no __syncthreads (3). It reads no
+// W: its input is the roots w^e, row 1 of the DFT matrix (W[1, e]), so it
+// computes the level only when W is a DFT matrix, as every caller's is
+// (ntt/matmul.py dft_matrix); hodor_ntt_level takes any W. S = 16 stays
+// on the limb body: at n16 = 16 a lane would hold the whole column, 128
+// words, and the S = 16 levels the paths give are small, where a pair of
+// lanes a column runs long serial chains (PERF.md section 6).
+//
 // hodor_ntt_level, for every other shape (S <= 128 of any size, 64-bit
-// fields): limb arithmetic on the integer pipe, S products of 2 NW x 2 NW
-// words per output (64 mad.wide.u32 each at NW = 8), bound by integer
-// multiplies. The exact sum t < S * p^2 is accumulated without any
-// reduction in 2*NW + 1 64-bit column accumulators (each column takes
-// at most 2 * NW terms below 2^32 per product, so 128 products stay
-// below 2^44). A block computes an 8 x 32 tile of (k, column) outputs and
-// streams W and x through shared memory in steps of 8 j, x stored
-// word-major so a warp reads 32 consecutive words.
+// fields), and by name for any W: limb arithmetic on the integer pipe, S
+// products of 2 NW x 2 NW words per output (64 mad.wide.u32 each at
+// NW = 8), bound by integer multiplies. The exact sum t < S * p^2 is
+// accumulated without any reduction in 2*NW + 1 64-bit column
+// accumulators (each column takes at most 2 * NW terms below 2^32 per
+// product, so 128 products stay below 2^44). A block computes an 8 x 32
+// tile of (k, column) outputs and streams W and x through shared memory
+// in steps of 8 j, x stored word-major so a warp reads 32 consecutive
+// words. At S = 4 (S = 2) the tile leaves half (three quarters) of a
+// block's threads without an output and as much of each 8-j step zero
+// padding: the butterfly body takes those radices.
 //
-// Both end the same way: one word-serial Montgomery reduction and the
-// conditional-subtract chain derived from the bound bring t below p
-// (hodor_tpu/ntt/matmul.py _reduction_chain), then the twiddle. The
-// reduction keeps u in NW words; why that holds for the fields whose top
-// word is nearly full (F_BLS, F_P63, at S = 4 and 2 only), and the test
-// at every x = p - 1 that holds it, are at field.cuh mont_reduce_wide.
-//
-// At S = 4 (S = 2) the limb body's 8 x 32 tile leaves half (three
-// quarters) of a block's threads without an output and as much of each
-// 8-j step zero padding: slow, not wrong.
+// The mma and limb bodies end the same way: one word-serial Montgomery
+// reduction and the conditional-subtract chain derived from the bound
+// bring t below p (hodor_tpu/ntt/matmul.py _reduction_chain), then the
+// twiddle. The reduction keeps u in NW words; why that holds for the
+// fields whose top word is nearly full (F_BLS, F_P63, at S = 4 and 2
+// only), and the test at every x = p - 1 that holds it, are at field.cuh
+// mont_reduce_wide.
 #include "byte_plane_mma.cuh"
 #include "field.cuh"
 
@@ -304,6 +332,174 @@ static int launch_ntt_level_mma(int32_t* out, const int32_t* x, const uint8_t* w
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------- butterfly body
+
+constexpr int kButterflyThreads = 128;
+
+template <int S>
+__host__ __device__ constexpr int bit_reverse(int k) {
+  int r = 0;
+  for (int s = 1; s < S; s <<= 1, k >>= 1) r = (r << 1) | (k & 1);
+  return r;
+}
+
+// The radix-2 decimation-in-frequency stages from half-span H down to 1 on
+// the N elements of v (natural order in, bit-reversed out): an N-point DFT
+// by the root w^(S / N) of the level's S-point root w. A pair (a, b) at
+// distance H becomes (a + b, (a - b) w^e), e = i (N / 2 H) (S / N) for the
+// pair's offset i in its block; e = 0 needs no product. w^e is roots[e].
+template <int S, int N, int H, int NW>
+__device__ __forceinline__ void dif_stages(uint32_t (&v)[N][NW],
+                                           const int32_t* __restrict__ roots,
+                                           const FieldConsts& fc) {
+#pragma unroll
+  for (int s0 = 0; s0 < N; s0 += 2 * H) {
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      uint32_t sum[NW], dif[NW];
+      mod_add<NW>(sum, v[s0 + i], v[s0 + i + H], fc);
+      mod_sub<NW>(dif, v[s0 + i], v[s0 + i + H], fc);
+#pragma unroll
+      for (int r = 0; r < NW; ++r) v[s0 + i][r] = sum[r];
+      const int e = i * (N / (2 * H)) * (S / N);
+      if (e == 0) {
+#pragma unroll
+        for (int r = 0; r < NW; ++r) v[s0 + i + H][r] = dif[r];
+      } else {
+        uint32_t root[NW];
+        load_words_v4<NW>(roots + e * (2 * NW), root);
+        mont_mul_words<NW>(v[s0 + i + H], dif, root, fc);
+      }
+    }
+  }
+  if constexpr (H > 1) dif_stages<S, N, H / 2, NW>(v, roots, fc);
+}
+
+// Lanes 2 i and 2 i + 1 share column m = b C + c. The column is S n16 / 4
+// units of 16 bytes (unit u: element u / UE, its words 2 (u % UE) and
+// 2 (u % UE) + 1, UE = n16 / 4 units an element); lane q loads the units
+// of parity q, so a pair reads 32 contiguous bytes at a time (two
+// quarters of one element, or two neighbouring elements when C = 1), and
+// takes the others from its partner by shuffle. The first stage splits
+// the work: lane 0 keeps the sums (the even outputs), lane 1 the
+// differences times w^i (the odd outputs); each then runs the S/2-point
+// stages alone, twiddles its S/2 outputs and stores them, a pair again
+// writing 32 contiguous bytes at a time. Both lanes of a pair are live or
+// neither; a dead pair still shuffles.
+template <int S, int N16>
+__global__ void __launch_bounds__(kButterflyThreads)
+    ntt_level_butterfly_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x,
+                               const int32_t* __restrict__ roots, long long total_m,
+                               long long cols,
+                               int tw_mode, const int32_t* __restrict__ tw, FieldConsts fc) {
+  constexpr int NW = N16 / 2, UE = N16 / 4, U = S * UE, HS = S / 2;
+  const long long t = (long long)blockIdx.x * kButterflyThreads + threadIdx.x;
+  const long long m = t >> 1;
+  const int q = (int)(t & 1);
+  const bool live = m < total_m;
+  const long long c = live ? m % cols : 0;
+  const long long base = live ? (m - c) * S + c : 0;  // element (b, 0, c) of x and out
+
+  uint32_t mine[U / 2][2], theirs[U / 2][2];
+#pragma unroll
+  for (int p = 0; p < U / 2; ++p) {
+    const int u = 2 * p + q;
+    int4 d = make_int4(0, 0, 0, 0);
+    if (live) d = *reinterpret_cast<const int4*>(x + (base + (u / UE) * cols) * N16 + 4 * (u % UE));
+    mine[p][0] = (uint32_t)d.x | ((uint32_t)d.y << 16);
+    mine[p][1] = (uint32_t)d.z | ((uint32_t)d.w << 16);
+  }
+#pragma unroll
+  for (int p = 0; p < U / 2; ++p)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) theirs[p][r] = __shfl_xor_sync(0xffffffffu, mine[p][r], 1);
+  uint32_t v[S][NW];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      v[u / UE][2 * (u % UE) + r] = (u & 1) == q ? mine[u >> 1][r] : theirs[u >> 1][r];
+
+  uint32_t y[HS][NW];
+  if (q == 0) {
+#pragma unroll
+    for (int i = 0; i < HS; ++i) mod_add<NW>(y[i], v[i], v[i + HS], fc);
+  } else {
+#pragma unroll
+    for (int i = 0; i < HS; ++i) {
+      if (i == 0) {
+        mod_sub<NW>(y[i], v[i], v[i + HS], fc);
+      } else {
+        uint32_t dif[NW], root[NW];
+        mod_sub<NW>(dif, v[i], v[i + HS], fc);
+        load_words_v4<NW>(roots + i * N16, root);
+        mont_mul_words<NW>(y[i], dif, root, fc);
+      }
+    }
+  }
+  if constexpr (HS > 1) dif_stages<S, HS, HS / 2, NW>(y, roots, fc);
+
+  // y[i] = out[k0 + q], k0 = 2 bitrev(i); the pair stores out[k0], out[k0 + 1]
+#pragma unroll
+  for (int i = 0; i < HS; ++i) {
+    const int k0 = 2 * bit_reverse<HS>(i);
+    apply_twiddle<NW>(y[i], tw_mode, tw, (k0 + q) * cols + c, fc);
+    if constexpr (UE == 1) {
+      // the two outputs are the pair's units already
+      if (live) store_words_v4<NW>(out + (base + (k0 + q) * cols) * N16, y[i]);
+    } else {
+      // lane q writes the units 2 p + q of both outputs: its own, and the
+      // partner's through one shuffle of the units of the other parity
+      uint32_t send[UE / 2][2], recv[UE / 2][2];
+#pragma unroll
+      for (int p = 0; p < UE / 2; ++p)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) send[p][r] = q ? y[i][4 * p + r] : y[i][4 * p + 2 + r];
+#pragma unroll
+      for (int p = 0; p < UE / 2; ++p)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) recv[p][r] = __shfl_xor_sync(0xffffffffu, send[p][r], 1);
+      if (!live) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int p = 0; p < UE / 2; ++p) {
+          const uint32_t a0 = e != q ? recv[p][0] : q ? y[i][4 * p + 2] : y[i][4 * p];
+          const uint32_t a1 = e != q ? recv[p][1] : q ? y[i][4 * p + 3] : y[i][4 * p + 1];
+          *reinterpret_cast<int4*>(out + (base + (k0 + e) * cols) * N16 + 4 * (2 * p + q)) =
+              make_int4((int)(a0 & 0xFFFFu), (int)(a0 >> 16), (int)(a1 & 0xFFFFu),
+                        (int)(a1 >> 16));
+        }
+      }
+    }
+  }
+}
+
+template <int S, int N16>
+static int launch_ntt_level_butterfly(int32_t* out, const int32_t* x, const int32_t* roots,
+                                      long long total_m, long long cols, int tw_mode,
+                                      const int32_t* tw, const FieldConsts& fc,
+                                      cudaStream_t stream) {
+  const long long blocks = (2 * total_m + kButterflyThreads - 1) / kButterflyThreads;
+  ntt_level_butterfly_kernel<S, N16><<<(unsigned)blocks, kButterflyThreads, 0, stream>>>(
+      out, x, roots, total_m, cols, tw_mode, tw, fc);
+  return (int)cudaGetLastError();
+}
+
+template <int N16>
+static int dispatch_ntt_level_butterfly(int32_t* out, const int32_t* x, const int32_t* roots,
+                                        long long total_m, int size, long long cols,
+                                        int tw_mode, const int32_t* tw, const FieldConsts& fc,
+                                        cudaStream_t s) {
+  if (size == 2)
+    return launch_ntt_level_butterfly<2, N16>(out, x, roots, total_m, cols, tw_mode, tw, fc, s);
+  if (size == 4)
+    return launch_ntt_level_butterfly<4, N16>(out, x, roots, total_m, cols, tw_mode, tw, fc, s);
+  if (size == 8)
+    return launch_ntt_level_butterfly<8, N16>(out, x, roots, total_m, cols, tw_mode, tw, fc, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace hodor
 
 extern "C" int hodor_ntt_level(int n16, int32_t* out, const int32_t* x, const int32_t* w,
@@ -337,5 +533,25 @@ extern "C" int hodor_ntt_level_mma(int n16, int32_t* out, const int32_t* x, cons
     return hodor::launch_ntt_level_mma<64, 16>(out, x, wb, batch, cols, tw_mode, tw, lc, s);
   if (size == 128)
     return hodor::launch_ntt_level_mma<128, 16>(out, x, wb, batch, cols, tw_mode, tw, lc, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// roots: (S, n16) Montgomery w^e, e < S, for the level's S-point root w
+// (row 1 of the DFT matrix); x and out contiguous (batch, S, cols, n16),
+// all 16-byte aligned. Takes n16 = 4 and 16 at S = 2, 4, 8.
+extern "C" int hodor_ntt_level_butterfly(int n16, int32_t* out, const int32_t* x,
+                                         const int32_t* roots, long long batch, int size,
+                                         long long cols, int tw_mode, const int32_t* tw,
+                                         const uint32_t* p_words, uint32_t pinv0, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (batch < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  const long long total_m = batch * cols;
+  if (n16 == 4)
+    return hodor::dispatch_ntt_level_butterfly<4>(out, x, roots, total_m, size, cols, tw_mode, tw,
+                                                  hodor::make_field_consts(2, p_words, pinv0), s);
+  if (n16 == 16)
+    return hodor::dispatch_ntt_level_butterfly<16>(out, x, roots, total_m, size, cols, tw_mode, tw,
+                                                   hodor::make_field_consts(8, p_words, pinv0),
+                                                   s);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,10 +21,12 @@ the wrapper picks one from the field and the radix (`dft_reduce_body`),
 and `dft_reduce_body_counts` counts each. `mont_pow` is a second entry of
 mont_mul.cu: x^e for a static exponent in one launch (the one-program
 exponent loop of hodor_tpu/field/limbs.py inv_fermat); its launches count
-as mont_mul's. `ntt_level` has two bodies in ntt_level.cu, the byte-plane
-contraction on the int8 tensor cores ("mma", csrc/byte_plane_mma.cuh) and
-the limb arithmetic on the integer pipe ("limb"); the wrapper picks one
-from the field and the radix (`ntt_level_body`), and
+as mont_mul's. `ntt_level` has three bodies in ntt_level.cu, the
+byte-plane contraction on the int8 tensor cores ("mma",
+csrc/byte_plane_mma.cuh) for S = 32-128 at 16 limbs, radix-2 butterflies
+on canonical values in registers ("butterfly") for S = 2, 4, 8, and the
+limb arithmetic on the integer pipe ("limb") for the rest; the wrapper picks
+one from the field and the radix (`ntt_level_body`), and
 `ntt_level_body_counts` counts each beside their sum in `launch_counts`.
 `mont_mul` has three bodies picked from the collapsed layout ("flat",
 "grid", "general"; `mont_mul_body`), counted in `mont_mul_body_counts`.
@@ -68,7 +70,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level", "fri_fold", "wide_reduce",
            "dft_reduce")
 launch_counts = {name: 0 for name in KERNELS}
-NTT_LEVEL_BODIES = ("mma", "limb")
+NTT_LEVEL_BODIES = ("mma", "butterfly", "limb")
 ntt_level_body_counts = {body: 0 for body in NTT_LEVEL_BODIES}
 DFT_REDUCE_BODIES = ("mma", "dp4a")
 dft_reduce_body_counts = {body: 0 for body in DFT_REDUCE_BODIES}
@@ -161,6 +163,8 @@ def _bind(lib):
     lib.hodor_blake2s.argtypes = [vp, vp, i64, i32, vp, u32, vp]
     lib.hodor_ntt_level.argtypes = [i32, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
     lib.hodor_ntt_level_mma.argtypes = lib.hodor_ntt_level.argtypes
+    lib.hodor_ntt_level_butterfly.argtypes = [i32, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32,
+                                              vp]
     lib.hodor_fri_fold.argtypes = [i32, vp, i64, vp, i64, i64, vp, i64, i64, vp, i64, vp, i64, vp,
                                    i64, i64, vp, u32, vp]
     lib.hodor_wide_reduce.argtypes = [i32, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
@@ -169,7 +173,8 @@ def _bind(lib):
     lib.hodor_dft_reduce_mma.argtypes = lib.hodor_dft_reduce.argtypes
     lib.hodor_s8dot.argtypes = [vp, vp, vp, i32, i32, i32, vp]
     for fn in (lib.hodor_mont_mul, lib.hodor_mont_pow, lib.hodor_addsub, lib.hodor_blake2s,
-               lib.hodor_ntt_level, lib.hodor_ntt_level_mma, lib.hodor_fri_fold,
+               lib.hodor_ntt_level, lib.hodor_ntt_level_mma, lib.hodor_ntt_level_butterfly,
+               lib.hodor_fri_fold,
                lib.hodor_wide_reduce, lib.hodor_dft_reduce, lib.hodor_dft_reduce_mma,
                lib.hodor_s8dot):
         fn.restype = ctypes.c_int
@@ -666,6 +671,37 @@ def ntt_level_plain(field: Field, x, w, tw=None):
     return u
 
 
+def ntt_level_butterfly_plain(field: Field, x, w, tw=None):
+    """The arithmetic of ntt_level's butterfly body in torch ops: log2 S
+    radix-2 decimation-in-frequency stages over axis 1 of x (B, S, C, n16)
+    on canonical values, a pair (a, b) at distance h becoming (a + b,
+    (a - b) w^e) with w^e = w[1, e] (no product at e = 0), the outputs read
+    from their bit-reversed places, then the twiddle as in
+    ntt_level_plain. Reads row 1 of w alone, so it equals ntt_level_plain
+    only where w is a DFT matrix (w[k, j] = w[1, 1]^(kj)), as dft_matrix
+    builds it."""
+    bsz, size, cols, n = x.shape
+    if size & (size - 1):
+        raise ValueError(f"the butterfly body takes a power-of-two S, got {size}")
+    v = x
+    h = size // 2
+    while h >= 1:
+        pairs = v.reshape(bsz, size // (2 * h), 2, h, cols, n)
+        a, b = pairs[:, :, 0], pairs[:, :, 1]
+        dif = addsub_plain(field, a, b, "sub")
+        if h > 1:
+            roots = w[1, 0:size // 2:size // (2 * h)][1:, None, :]  # w^e for i = 1 .. h - 1
+            dif = torch.cat([dif[:, :, :1], mont_mul_plain(field, dif[:, :, 1:], roots)], dim=2)
+        v = torch.stack([addsub_plain(field, a, b, "add"), dif], dim=2).reshape(x.shape)
+        h //= 2
+    bits = size.bit_length() - 1
+    order = [int(format(k, f"0{bits}b")[::-1], 2) if bits else 0 for k in range(size)]
+    out = v[:, order]
+    if tw is not None:
+        out = mont_mul_plain(field, out, tw)
+    return out
+
+
 def byte_planes(limbs):
     """(..., n16) 16-bit limbs -> (..., 2 n16) uint8: the element's bytes,
     little-endian (plane 2 i the low byte of limb i, plane 2 i + 1 the high)."""
@@ -745,32 +781,42 @@ def _level_args(field: Field, radix: int, tw):
 
 
 MMA_RADICES = (32, 64, 128)
+BUTTERFLY_RADICES = (2, 4, 8)
 
 
 def ntt_level_body(field: Field, size: int) -> str:
     """Which body of the ntt_level kernel a level takes, from the field and
     the radix alone: "mma" (byte planes on the int8 tensor cores) for a
     16-limb field at S = 32, 64 or 128, whose depth fills the products'
-    32 bytes; "limb" (the integer pipe) for every other S <= 128, which is
-    the 4-limb fields and the small terminal radices. Raises where neither
-    applies."""
+    32 bytes; "butterfly" (radix-2 stages in registers) at S = 2, 4, 8,
+    which is every level of a field of max_radix 4 and the small terminal
+    radices; "limb" (the integer pipe) for every other S <= 128. Raises
+    where none applies."""
+    if field.n16 not in (4, 16) or not 1 <= size <= 128:
+        raise ValueError(f"ntt_level takes n16 of 4 or 16 and S <= 128, got n16={field.n16}, "
+                         f"S={size}")
     if field.n16 == 16 and size in MMA_RADICES:
         return "mma"
-    if field.n16 in (4, 16) and 1 <= size <= 128:
-        return "limb"
-    raise ValueError(f"ntt_level takes n16 of 4 or 16 and S <= 128, got n16={field.n16}, S={size}")
+    if size in BUTTERFLY_RADICES:
+        return "butterfly"
+    return "limb"
 
 
 def ntt_level(field: Field, x, w, tw=None, w_planes=None, body=None):
     """One radix-S DFT level over axis 1 of x (B, S, C, n16) with the
     (S, S, n16) Montgomery DFT matrix w, then an optional Montgomery
     twiddle: a scalar (n16,) or an (S, C, n16) table wrapping over B.
-    CPU: plain version. CUDA: the ntt_level kernel, in the body that
-    `ntt_level_body` names for the field and S. The "mma" body reads W as
-    its (2 n16, S, S) uint8 byte-plane matrix `w_planes`
-    (`dft_byte_planes(w)`, derived here when the caller keeps no table).
-    `body` asks for one body by name, for comparing the two on one input:
-    "limb" serves every shape, "mma" only its own."""
+    w must be `ntt/matmul.py dft_matrix(ops, S, inverse)` on either
+    device: the "butterfly" body is given only its row 1, the roots
+    w[1, e] = w[1, 1]^e, so on the card at its radices the result is the
+    level for a DFT matrix whatever else w holds (the plain version on the
+    CPU multiplies by w as given). CPU: plain version. CUDA: the ntt_level
+    kernel, in the body that `ntt_level_body` names for the field and S.
+    The "mma" body reads W as its (2 n16, S, S) uint8 byte-plane matrix
+    `w_planes` (`dft_byte_planes(w)`, derived here when the caller keeps
+    no table). `body` asks for one body by name, for comparing them on one
+    input: "limb" serves every shape, the other two only their own
+    radices."""
     _check_limbs(field, x, w)
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, C, n16), got {tuple(x.shape)}")
@@ -787,7 +833,7 @@ def ntt_level(field: Field, x, w, tw=None, w_planes=None, body=None):
     natural = ntt_level_body(field, size)
     if body is None:
         body = natural
-    elif body not in NTT_LEVEL_BODIES or (body == "mma" and natural != "mma"):
+    elif body not in (natural, "limb"):
         raise ValueError(f"body {body!r} does not take n16={field.n16}, S={size}")
     out = torch.empty_like(x)
     if x.numel() == 0:
@@ -803,6 +849,15 @@ def ntt_level(field: Field, x, w, tw=None, w_planes=None, body=None):
         code = _kernels().hodor_ntt_level_mma(
             field.n16, out.data_ptr(), x.data_ptr(), w_planes.data_ptr(), bsz, size, cols,
             *_level_args(field, size, tw), _stream(),
+        )
+    elif body == "butterfly":
+        roots = w[1]
+        if roots.data_ptr() % 16:
+            raise ValueError("w must lie at a 16-byte aligned address")
+        tw_mode, tw_ptr, p_words, pinv0, _, _ = _level_args(field, size, tw)
+        code = _kernels().hodor_ntt_level_butterfly(
+            field.n16, out.data_ptr(), x.data_ptr(), roots.data_ptr(), bsz, size, cols, tw_mode,
+            tw_ptr, p_words, pinv0, _stream(),
         )
     else:
         code = _kernels().hodor_ntt_level(

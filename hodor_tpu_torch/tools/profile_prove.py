@@ -20,7 +20,8 @@ prove, then one warm prove without the profiler and one under
     intervals the profiler recorded, and the idle share
     1 - busy / wall against both walls (the profiler adds host time, so
     the share against the profiled wall is an upper bound);
-  - device time and launch count per kernel group and the top kernels.
+  - device time and launch count per kernel group (each body of
+    ntt_level its own) and the top kernels.
 Needs a CUDA device.
 """
 
@@ -38,6 +39,7 @@ STARTS = ((1, 2), (3, 5), (2, 9), (7, 11), (4, 13), (6, 1), (8, 3), (5, 10))
 
 GROUPS = (
     ("ntt_level (mma body)", ("ntt_level_mma_kernel",)),
+    ("ntt_level (butterfly body)", ("ntt_level_butterfly_kernel",)),
     ("ntt_level (limb body)", ("ntt_level_kernel",)),
     ("mont_mul", ("mont_mul_kernel", "mont_mul_flat_kernel", "mont_mul_grid_kernel")),
     ("mont_pow", ("mont_pow_kernel",)),
@@ -155,7 +157,7 @@ def main(argv) -> int:
         groups[_group(name)][0] += n
         groups[_group(name)][1] += d
     for g, (n, d) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
-        print(f"  {g:24s} {n:7d} launches {d / 1e3:10.2f} ms  {100 * d / 1e3 / total_ms:5.1f}%")
+        print(f"  {g:28s} {n:7d} launches {d / 1e3:10.2f} ms  {100 * d / 1e3 / total_ms:5.1f}%")
     print("top device kernels:")
     for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"  {d / 1e3:9.2f} ms {n:6d}x  {name}")

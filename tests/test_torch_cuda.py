@@ -137,6 +137,37 @@ def test_ntt_level_bodies_agree_with_the_plain_version(dev, size, cols, bsz, tw)
                     body="mma")
 
 
+# the butterfly body's columns: C = 1 (a thread's S elements contiguous),
+# B = 1, a block edge inside a batch (B C = 129, 200), both directions
+BUTTERFLY_CASES = [(size, bsz, cols, tw, inverse) for size in (2, 4, 8)
+                   for bsz, cols, tw, inverse in ((3, 43, "table", False),
+                                                  (129, 1, "scalar", True), (1, 200, None, True),
+                                                  (5, 1, None, False))]
+
+
+@pytest.mark.parametrize("name,size,bsz,cols,tw,inverse", _by_field(BUTTERFLY_CASES))
+def test_ntt_level_butterfly_body(dev, name, size, bsz, cols, tw, inverse):
+    field = FIELDS[name]
+    if size > 1 << field.S:
+        pytest.skip("domain larger than the field's 2-adicity")
+    ops = LimbOps(field, "cpu")
+    x = _canonical(field, (bsz, size, cols), 27)
+    t = {"table": _canonical(field, (size, cols), 28), "scalar": _canonical(field, (), 29),
+         None: None}[tw]
+    w = dft_matrix(ops, size, inverse)
+    want = K.ntt_level_plain(field, x, w, t)
+    assert torch.equal(K.ntt_level_butterfly_plain(field, x, w, t), want)
+    xd, wd, td = x.to(dev), w.to(dev), None if t is None else t.to(dev)
+    natural = K.ntt_level_body(field, size)
+    assert natural == "butterfly"
+    for body, kwargs in ((natural, {}), ("butterfly", {"body": "butterfly"}),
+                         ("limb", {"body": "limb"})):
+        before = (K.launch_counts["ntt_level"], dict(K.ntt_level_body_counts))
+        _same(K.ntt_level(field, xd, wd, td, **kwargs), want)
+        assert K.launch_counts["ntt_level"] == before[0] + 1
+        assert K.ntt_level_body_counts[body] == before[1][body] + 1
+
+
 def test_mont_mul_layouts(dev):
     """Each body of the mont_mul kernel: flat (contiguous, scalar, a view
     offset by one element, a strided 1-D view), grid (the LDE shift's
@@ -431,8 +462,9 @@ def test_prove_batch_on_the_card(dev):
 def test_level_kernels_at_worst_case_inputs(dev, name, size, cols, bsz, tw):
     """Every x = p - 1: the largest exact sums a level of these fields can
     see, where the limb body keeps u = (t + m p) / R in n16 limbs and drops
-    the word above (csrc/field.cuh mont_reduce_wide). The three level
-    kernels against the plain version, which keeps that word."""
+    the word above (csrc/field.cuh mont_reduce_wide). The limb body, the
+    butterfly body and the two other level kernels against the plain
+    version, which keeps that word."""
     field = FIELDS[name]
     ops = LimbOps(field, "cpu")
     top = torch.as_tensor([((field.p - 1) >> (16 * i)) & 0xFFFF for i in range(field.n16)],
@@ -443,6 +475,7 @@ def test_level_kernels_at_worst_case_inputs(dev, name, size, cols, bsz, tw):
     want = K.ntt_level_plain(field, x, w, t)
     td = None if t is None else t.to(dev)
     _same(K.ntt_level(field, x.to(dev), w.to(dev), td, body="limb"), want)
+    _same(K.ntt_level(field, x.to(dev), w.to(dev), td, body="butterfly"), want)
     w_s8, w_sum = folded_dft_matrix(ops, size, False)
     x_s8 = encode_s8(x).contiguous()
     _same(K.wide_reduce(field, K.dft_columns_plain(w_s8, w_sum, x_s8).to(dev), size, td), want)

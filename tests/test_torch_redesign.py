@@ -12,7 +12,8 @@ import torch
 
 import hodor_tpu.ntt.matmul as jmm
 from hodor_tpu.field import F257 as JF257, F_STARK as JF_STARK, ops_for
-from hodor_tpu_torch.field import F257, F_STARK, LimbOps, from_numpy_limbs, to_numpy_limbs
+from hodor_tpu_torch.field import (F257, F_BLS, F_P63, F_STARK, LimbOps, from_numpy_limbs,
+                                   to_numpy_limbs)
 from hodor_tpu_torch.field import kernels as K
 from hodor_tpu_torch.field.limbs import pack_ints
 from hodor_tpu_torch.ntt import matmul as tmm
@@ -84,9 +85,11 @@ def test_dft_matrix_planes_are_the_bytes_of_dft_matrix(name, inverse):
 
 
 def test_ntt_level_body_follows_field_and_radix():
-    assert [K.ntt_level_body(F_STARK, s) for s in (128, 64, 32, 16, 8, 2)] == \
-        ["mma", "mma", "mma", "limb", "limb", "limb"]
-    assert [K.ntt_level_body(F257, s) for s in (128, 32, 2)] == ["limb"] * 3
+    assert [K.ntt_level_body(F_STARK, s) for s in (128, 64, 32, 16, 8, 4, 2, 1)] == \
+        ["mma", "mma", "mma", "limb", "butterfly", "butterfly", "butterfly", "limb"]
+    assert [K.ntt_level_body(F257, s) for s in (128, 32, 16, 8, 4, 2)] == \
+        ["limb"] * 3 + ["butterfly"] * 3
+    assert [K.ntt_level_body(f, s) for f in (F_BLS, F_P63) for s in (4, 2)] == ["butterfly"] * 4
     with pytest.raises(ValueError):
         K.ntt_level_body(F_STARK, 256)
 
