@@ -75,13 +75,22 @@ Phases, each reported on its own line:
      one rank over NCCL in this process at 2^20 rows, 13b two ranks
      sharing the card over gloo at 2^20 rows, 13c four ranks over gloo at
      2^16 rows (spawned processes; the kernels built above are loaded,
-     not built again). Every rank's proof must equal the single-device
-     proof of the same witness (phase 5's at 2^20), verify, and have its
-     tampered f_at_z_m[0] rejected; each rank's stage walls, peak device
-     memory and collective calls, bytes and seconds per stage, and rank
-     0's launches per kernel (set-up + cold prove), are printed. With
-     ranks sharing one card, gloo carries every exchange through host
-     memory: its seconds are not those of NVLink.
+     not built again). The FRI ladders of 13b and 13c fold and commit the
+     ranks' row blocks (parallel/fri.py). Every rank's proof must equal
+     the single-device proof of the same witness (phase 5's at 2^20),
+     verify, and have its tampered f_at_z_m[0] rejected; each rank's
+     stage walls, peak device memory and collective calls, bytes and
+     seconds per stage, the FRI stage's beside those of the earlier
+     ladders on h1 and h2 gathered onto every rank (GATHERED_LADDERS), and
+     rank 0's launches per
+     kernel (set-up + cold prove), are printed. With ranks sharing one
+     card, gloo carries every exchange through host memory: its seconds
+     are not those of NVLink. 13d: two gloo ranks at 2^16 rows, a
+     checkpointed prove and resumes after each of its four stages, every
+     rank's proofs equal to the single-device proof (verified, a tampered
+     copy rejected), each rank's peak in the checkpointed prove within
+     one row block of its plain prove's; this process then resumes the
+     directory the two ranks wrote on one device, byte-equal too.
 Phase 8 runs right after phase 5, whose prover it reuses and then frees;
 every other phase lets its prover go when it returns. Every path of
 phases 5-12 zeroes the launch counts just before it runs and reads them
@@ -1161,15 +1170,146 @@ def phase_mesh_rank(mesh, device, log_rows: int) -> dict:
         raise AssertionError("the warm and the cold proof differ")
     return {"rank": mesh.get_local_rank(), "device": str(device), "proof": proof,
             "setup_cold_s": cold, "warm_s": warm, "stages": prover.last_timings.to_json(),
+            "fri_s": prover.last_timings.as_dict()["fri_h1+h2"],
             "exchanges": prover.last_exchanges, "counts": counts,
             "ntt_bodies": ntt_bodies,
             "peak_gib": (peak_cold / 2**30, torch.cuda.max_memory_allocated() / 2**30)}
 
 
+def phase_mesh_checkpoint_rank(mesh, device, log_rows: int, root: str) -> dict:
+    """One rank of phase 13d: the quadratic VDF at 2^log_rows rows under
+    `mesh`: a cold prove, a warm one (peak), a checkpointed one into
+    root/full (wall, peak), then resumes of copies of that directory cut
+    after each stage (rank 0 makes them). Returns the proofs' bytes, walls,
+    peaks and the stages each resume took from the directory."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from hodor_tpu_torch.checkpoint import STAGES, ProveCheckpoint
+    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+
+    witness, props = VDF(F_STARK, 1, 2, (1 << log_rows) - 1).into_arp()
+    prover = Prover(props, lde_factor=16, fri_final_degree_plus_one=1, device=device, mesh=mesh)
+    prover.prove(witness)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain = serialize_proof(prover.prove(witness), F_STARK)
+    peak_plain = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full = os.path.join(root, "full")
+    t0 = time.perf_counter()
+    saved = serialize_proof(prover.prove(witness, checkpoint_dir=full), F_STARK)
+    saved_s = time.perf_counter() - t0
+    peak_saved = torch.cuda.max_memory_allocated()
+    rank = mesh.get_local_rank()
+    if rank == 0:
+        for keep in range(1, len(STAGES) + 1):
+            shutil.copytree(full, os.path.join(root, f"keep{keep}"))
+            for stage in STAGES[keep:]:
+                for path in ProveCheckpoint(os.path.join(root, f"keep{keep}"))._paths(stage):
+                    os.remove(path)
+    dist.barrier(group=mesh.get_group())
+    resumes = {}
+    for keep, stage in enumerate(STAGES, 1):
+        t0 = time.perf_counter()
+        blob = serialize_proof(prover.prove(witness, checkpoint_dir=os.path.join(
+            root, f"keep{keep}")), F_STARK)
+        resumes[stage] = (blob, time.perf_counter() - t0,
+                          sum(r.name.endswith("(resumed)") for r in prover.last_timings.records))
+    return {"rank": rank, "plain": plain, "saved": saved, "saved_s": saved_s,
+            "resumes": resumes, "peak_bytes": (peak_plain, peak_saved)}
+
+
+def phase_mesh_checkpoint(dev, log_rows: int, want: bytes) -> None:
+    """Phase 13d: two gloo ranks at 2^log_rows rows checkpoint and resume
+    (phase_mesh_checkpoint_rank); every proof must be `want`, the
+    single-device proof, and the peak of each rank's checkpointed prove at
+    most one row block (of the largest saved array) above its plain
+    prove's; then this process resumes the ranks' directory on one device
+    after DEEP and after FRI."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hodor_tpu_torch.checkpoint import STAGES, ProveCheckpoint
+    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import deserialize_proof, serialize_proof
+    from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.tools.dryrun import run_ranks
+    from hodor_tpu_torch.verifier import Verifier
+
+    w = 2
+    label = f"13d mesh W={w} gloo one card 2^{log_rows}, checkpoint/resume"
+    witness, props = VDF(F_STARK, 1, 2, (1 << log_rows) - 1).into_arp()
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        t0 = time.perf_counter()
+        ranks = run_ranks(phase_mesh_checkpoint_rank, w, (log_rows, root), device=dev.type,
+                          backend="gloo", timeout=300)
+        log(f"{label}: phase {time.perf_counter() - t0:.2f} s (spawn included)")
+        arrays = [ProveCheckpoint(os.path.join(root, "full")).load(s)[0] for s in STAGES]
+        block = max(a.nbytes for stage in arrays for a in stage.values()) // w
+        for res in ranks:
+            r = res["rank"]
+            proofs = [res["plain"], res["saved"]] + [b for b, _, _ in res["resumes"].values()]
+            if any(p != want for p in proofs):
+                raise AssertionError(f"{label}: rank {r}: a proof differs from the single-device "
+                                     "proof")
+            if [n for _, _, n in res["resumes"].values()] != list(range(1, len(STAGES) + 1)):
+                raise AssertionError(f"{label}: rank {r}: a resume took other stages from the "
+                                     "directory")
+            peak_plain, peak_saved = res["peak_bytes"]
+            log(f"{label}: rank {r}: checkpointed prove {res['saved_s']:.3f} s; resumes after "
+                + ", ".join(f"{s} {t:.3f} s" for s, (_, t, _) in res["resumes"].items())
+                + f"; peak device memory plain {peak_plain / 2**30:.3f} GiB, checkpointed "
+                f"{peak_saved / 2**30:.3f} GiB (one block of the largest saved array "
+                f"{block / 2**30:.3f} GiB)")
+            if peak_saved > peak_plain + block:
+                raise AssertionError(f"{label}: rank {r}'s checkpointed prove peaks more than one "
+                                     "block above its plain prove")
+        verifier = Verifier(props, lde_factor=16)
+        proof = deserialize_proof(want, F_STARK)
+        if not verifier.verify(proof):
+            raise AssertionError(f"{label}: the verifier rejects the proof")
+        proof.f_at_z_m[0] = (proof.f_at_z_m[0] + 1) % F_STARK.p
+        if not rejected(verifier, proof):
+            raise AssertionError(f"{label}: the verifier accepts a tampered f_at_z_m[0]")
+        prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1, device=dev)
+        walls = []
+        for keep in (3, 4):
+            ckdir = os.path.join(root, f"one_device{keep}")
+            shutil.copytree(os.path.join(root, f"keep{keep}"), ckdir)
+            t0 = time.perf_counter()
+            if serialize_proof(prover.prove(witness, checkpoint_dir=ckdir), F_STARK) != want:
+                raise AssertionError(f"{label}: the one-device resume after {STAGES[keep - 1]} "
+                                     "differs")
+            walls.append(time.perf_counter() - t0)
+        log(f"{label}: every rank's plain, checkpointed and four resumed proofs equal the "
+            f"single-device proof, verified, tampered f_at_z_m[0] rejected; the directory "
+            f"resumed on one device after deep {walls[0]:.3f} s and after fri {walls[1]:.3f} s, "
+            f"byte-equal ({int(np.sum([a.nbytes for st in arrays for a in st.values()]))} bytes "
+            "saved)")
+
+
+# phases 13b and 13c when the FRI ladders ran on h1 and h2 gathered onto
+# every rank (H100 80GB HBM3 at 700.00 W, as PERF.md records them)
+GATHERED_LADDERS = {"13b": "FRI stage 2.988 s of rank 0's 6.117 s warm prove, 2.655 s of it the gather "
+                   "of h1 and h2, 1.5 GiB a rank; peak 22.29-22.35 GiB a rank",
+            "13c": "peak 1.217-1.223 GiB a rank"}
+
+
 def phase_mesh(dev, single_proof: bytes) -> dict:
     """Phase 13: 13a W = 1 over NCCL in this process, 13b W = 2 and 13c
-    W = 4 over gloo in spawned ranks sharing the card. Returns rank 0's
-    launch counts per path."""
+    W = 4 over gloo in spawned ranks sharing the card, 13d checkpoints
+    under W = 2. Returns rank 0's launch counts per path."""
     import torch
     import torch.distributed as dist
 
@@ -1190,6 +1330,12 @@ def phase_mesh(dev, single_proof: bytes) -> dict:
                 f"{res['peak_gib'][1]:.3f} GiB")
             log(f"{label}: rank {res['rank']} collectives per stage of the warm prove: "
                 f"{json.dumps(res['exchanges'])}")
+            fri = res["exchanges"].get("fri_h1+h2", {})
+            log(f"{label}: rank {res['rank']} FRI stage {res['fri_s']:.3f} s of the warm prove, "
+                + ", ".join(f"{kind} {c['calls']} calls {c['bytes'] / 2**30:.4f} GiB "
+                            f"{c['seconds']:.3f} s" for kind, c in fri.items())
+                + f"; peak {res['peak_gib'][1]:.3f} GiB (gathered ladders: "
+                f"{GATHERED_LADDERS.get(label[:3], 'not measured')})")
             if res["proof"] != want:
                 raise AssertionError(f"{label}: rank {res['rank']}'s proof differs from the "
                                      "single-device proof of the same witness")
@@ -1240,6 +1386,8 @@ def phase_mesh(dev, single_proof: bytes) -> dict:
                       timeout=300)
     log(f"{label}: phase {time.perf_counter() - t0:.2f} s (spawn included)")
     paths[label] = check(label, ranks, want, props)
+
+    phase_mesh_checkpoint(dev, LOG_ROWS_MESH_W4, want)
     return paths
 
 

@@ -15,6 +15,9 @@ saved values and checks the rebuilt root against the saved one. The
 resumed proof is byte-identical to an uninterrupted prove
 (tests/test_torch_checkpoint.py).
 
+Under a mesh (Prover(mesh=...)) the files are the same whole arrays:
+rank 0 writes them, and a resume gives each rank its rows.
+
 Layout: <dir>/<stage>.npz (arrays) + <dir>/<stage>.json (scalars +
 transcript snapshot; written LAST, so its presence marks the stage
 complete - a crash mid-write never yields a loadable half stage).
@@ -72,3 +75,10 @@ class ProveCheckpoint:
             meta = json.load(f)
         data = np.load(npz)
         return {k: data[k] for k in data.files}, meta
+
+    def clear(self) -> None:
+        """Delete every saved stage (the next prove starts afresh)."""
+        for s in STAGES:
+            for p in self._paths(s):
+                if os.path.exists(p):
+                    os.remove(p)

@@ -19,6 +19,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..errors import DivisionByZeroError
 from . import kernels
 from .field import Field
 
@@ -227,6 +228,12 @@ class LimbOps:
     def is_zero(self, a):
         """Boolean mask (...,) - works for Montgomery or canonical form."""
         return (a == 0).all(dim=-1)
+
+    def assert_nonzero(self, arr):
+        """Raise DivisionByZeroError where any element of arr is zero (the
+        reference's batch_inversion Err); a host check, one sync."""
+        if bool(self.is_zero(arr).any()):
+            raise DivisionByZeroError("batch inversion of a zero element")
 
     def select(self, mask, a, b):
         """mask (...,) bool -> where(mask, a, b) elementwise over limbs."""

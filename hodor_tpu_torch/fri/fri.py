@@ -12,6 +12,10 @@ the twiddles; the challenge comes from each root on the device
 (digest_to_challenge_mont) and stays there, since FRI fold challenges
 never touch the transcript.
 
+Under a mesh (parallel/) the ladder runs on the ranks' row blocks of
+h1 and h2 (parallel/fri.py), and the query walk opens its sharded layers
+through the owners' blocks.
+
 The ladder also runs for a batch of proofs at once (Prover.prove_batch,
 the port of hodor_tpu/fri/fri.py fri_chain_pair_batch): the values carry
 a leading lane axis, (B, N, L), and each round is one batched tree, one
@@ -36,15 +40,19 @@ from ..field import kernels
 from ..field.field import Field
 from ..field.limbs import LimbOps, fetch_together
 from ..merkle.blake2s import digest_to_challenge_mont
-from ..merkle.tree import (IopQuery, MerkleTree, digest_to_bytes, fetch_roots, take_rows,
+from ..merkle.tree import (IopQuery, MerkleTree, digest_to_bytes, keep_roots, take_rows,
                            verify_path)
 from ..ntt import intt, lde
+from ..parallel.multihost import ShardedMerkleTree, sharded_openings
 
 
 @dataclasses.dataclass
 class FRIProofPrototype:
     """All intermediate commitments/values (reference FRIProofPrototype,
-    src/fri/mod.rs:106-125). Values stay on the device in Montgomery form."""
+    src/fri/mod.rs:106-125). Values stay on the device in Montgomery form.
+    Under a mesh, a layer whose tree is a ShardedMerkleTree holds this
+    rank's row block of its values, in the tree's owner order; the others
+    (the ladder's tail) hold them whole."""
 
     l0_commitment: MerkleTree
     intermediate_commitments: List[MerkleTree]
@@ -84,24 +92,35 @@ class FRIProof:
 def fold_round(ops: LimbOps, values, challenge_limbs, stride: int, log_domain: int):
     """One FRI fold (src/fri/fri_on_values.rs:70-105). values: (K, L), or
     (B, K, L) for a batch; challenge_limbs: (L,) Montgomery, or (B, L) one
-    per lane; the round's twiddles w_j = W^(-j*stride), W the generator of
-    the 2^log_domain l0 domain, shared by the lanes. The two halves of
-    `values` are read in place, and the fold is the kernel's association
-    mont(mont(lo-hi, w), c/2) + mont(lo+hi, 1/2): the same canonical limbs
-    as (lo+hi + c*w*(lo-hi))/2 in any order."""
+    per lane. The two halves of `values` are read in place (fold_pair)."""
     half = values.shape[-2] // 2
-    dom = Domain.new_for_size(ops.field, 1 << log_domain)
-    w = ops.powers(ops.const(pow(dom.generator_inv, stride, ops.field.p)), half)
+    return fold_pair(ops, values[..., :half, :], values[..., half:2 * half, :], challenge_limbs,
+                     stride, log_domain)
+
+
+def fold_pair(ops: LimbOps, lo, hi, challenge_limbs, stride: int, log_domain: int,
+              first: int = 0):
+    """Rows first, first + 1, ... of a fold whose rows j pair lo[j - first]
+    with hi[j - first] (the rows j and j + K/2 of the round's values):
+    the round's twiddles w_j = W^(-j*stride) from j = first, W the
+    generator of the 2^log_domain l0 domain, shared by the lanes. The fold
+    is the kernel's association mont(mont(lo-hi, w), c/2) + mont(lo+hi,
+    1/2): the same canonical limbs as (lo+hi + c*w*(lo-hi))/2 in any
+    order."""
+    p = ops.field.p
+    step = pow(Domain.new_for_size(ops.field, 1 << log_domain).generator_inv, stride, p)
+    start = ops.const(pow(step, first, p)) if first else None
+    w = ops.powers(ops.const(step), lo.shape[-2], start=start)
     c_scaled = ops.mul(challenge_limbs, ops.two_inv_m)
-    return kernels.fri_fold(ops.field, values[..., :half, :], values[..., half:2 * half, :], w,
-                            c_scaled, ops.two_inv_m)
+    return kernels.fri_fold(ops.field, lo, hi, w, c_scaled, ops.two_inv_m)
 
 
-def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int):
-    """The FRI prover ladder: commit l0, then per round fold -> tree ->
-    root -> next challenge, the root -> challenge step on the device.
-    lde_values (N, L), or (B, N, L): every lane's round in one tree build
-    and one fold launch.
+def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int, first_round: int = 0):
+    """The FRI prover ladder: commit the first layer, then per round fold
+    -> tree -> root -> next challenge, the root -> challenge step on the
+    device. lde_values (N, L), or (B, N, L): every lane's round in one
+    tree build and one fold launch. first_round: the round the first
+    layer is at (a mesh ladder's tail starts after its sharded rounds).
 
     Returns (trees, intermediate values, final coefficients (K, L) or
     (B, K, L))."""
@@ -109,7 +128,7 @@ def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int):
     challenge = digest_to_challenge_mont(ops, trees[0].root_digest())
     values = lde_values
     intermediate = []
-    for i in range(num_steps):
+    for i in range(first_round, first_round + num_steps):
         values = fold_round(ops, values, challenge, 1 << i, log_domain)
         tree = MerkleTree.create(values, ops.field)
         trees.append(tree)
@@ -121,36 +140,55 @@ def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int):
 def gather_chain_queries(chain_data, idx_arrays):
     """Every round's query values and full Merkle paths. chain_data: list
     of (tree, committed values); idx_arrays: list of (Q,) int64 index
-    tensors, or (B, Q) for a tree and values with B lanes. Returns per
-    round (values (Q, L), siblings (depth, Q, 8)), or (B, Q, L) and
-    (depth, B, Q, 8) with lanes, on the host, in one device-to-host copy."""
-    out = []
-    for (tree, vals), idx in zip(chain_data, idx_arrays):
-        out.extend((take_rows(vals, idx), tree.path_digests(idx)))
-    if not out:
+    tensors, or (B, Q) for a tree and values with B lanes. The entries
+    whose tree is a ShardedMerkleTree (values this rank's block) are
+    opened together, in one all_gather. Returns per entry (values (Q, L),
+    siblings (depth, Q, 8)), or (B, Q, L) and (depth, B, Q, 8) with lanes,
+    on the host, in one device-to-host copy."""
+    if not chain_data:
         return []
-    host = fetch_together(out)
+    sharded = [i for i, (tree, _) in enumerate(chain_data) if isinstance(tree, ShardedMerkleTree)]
+    out = [None] * len(chain_data)
+    if sharded:
+        opened = sharded_openings(
+            [chain_data[i] + (idx_arrays[i],) for i in sharded], chain_data[sharded[0]][0].mesh)
+        for i, pair in zip(sharded, opened):
+            out[i] = pair
+    for i, ((tree, vals), idx) in enumerate(zip(chain_data, idx_arrays)):
+        if out[i] is None:
+            out[i] = (take_rows(vals, idx), tree.path_digests(idx))
+    host = fetch_together([t for pair in out for t in pair])
     return list(zip(host[0::2], host[1::2]))
 
 
-def run_ladders(ops: LimbOps, ldes, lde_factor: int, output_coeffs_at_degree_plus_one: int):
+def run_ladders(ops: LimbOps, ldes, lde_factor: int, output_coeffs_at_degree_plus_one: int,
+                mesh=None):
     """The ladders of several LDEs (each (N, L), or (B, N, L) with lanes)
-    back to back, then one host fetch of every root and one of every
-    final coefficient vector. Returns per LDE (initial degree + 1, trees,
+    back to back, then one host fetch of every root and every final
+    coefficient vector. Under a mesh of W > 1 ranks each LDE is this
+    rank's (N/W, L) row block and its ladder runs sharded
+    (parallel/fri.py). Returns per LDE (initial degree + 1, trees,
     intermediate values, final coefficients on the host)."""
     if output_coeffs_at_degree_plus_one & (output_coeffs_at_degree_plus_one - 1):
         raise ValueError("output degree + 1 must be a power of two")
     if lde_factor & (lde_factor - 1):
         raise ValueError("lde factor must be a power of two")
+    w = 1 if mesh is None else mesh.size()
+    if w > 1:  # parallel/fri.py builds on this module
+        from ..parallel.fri import sharded_fri_chain
     chains = []
     for lde_values in ldes:
-        n = lde_values.shape[-2]
+        n = lde_values.shape[-2] * w
         idpo = n // lde_factor
         steps = log2_floor(idpo // output_coeffs_at_degree_plus_one)
-        chains.append((idpo,) + fri_chain(ops, lde_values, steps, log2_floor(n)))
-    fetch_roots([tree for chain in chains for tree in chain[1]])
-    final = fetch_together([chain[3] for chain in chains])
-    return [(idpo, trees, inter, fc) for (idpo, trees, inter, _), fc in zip(chains, final)]
+        chain = (fri_chain(ops, lde_values, steps, log2_floor(n)) if w == 1 else
+                 sharded_fri_chain(ops, lde_values, steps, log2_floor(n), mesh))
+        chains.append((idpo,) + chain)
+    trees = [tree for chain in chains for tree in chain[1]]
+    host = fetch_together([t.root_digest() for t in trees] + [chain[3] for chain in chains])
+    keep_roots(trees, host[:len(trees)])
+    return [(idpo, trees, inter, fc)
+            for (idpo, trees, inter, _), fc in zip(chains, host[len(trees):])]
 
 
 class NaiveFriIop:
@@ -169,15 +207,16 @@ class NaiveFriIop:
 
     @staticmethod
     def proofs_from_ldes(ops: LimbOps, ldes, lde_factor: int,
-                         output_coeffs_at_degree_plus_one: int) -> List[FRIProofPrototype]:
+                         output_coeffs_at_degree_plus_one: int,
+                         mesh=None) -> List[FRIProofPrototype]:
         """FRI prototypes for several polynomials (the prover's h1, h2):
         the ladders run back to back, then one host fetch brings every
-        root."""
+        root. Under a mesh each LDE is this rank's row block (run_ladders)."""
         return [
             NaiveFriIop._assemble_prototype(
                 ops, trees, inter, fc, idpo, output_coeffs_at_degree_plus_one, lde_factor)
             for idpo, trees, inter, fc in run_ladders(
-                ops, ldes, lde_factor, output_coeffs_at_degree_plus_one)
+                ops, ldes, lde_factor, output_coeffs_at_degree_plus_one, mesh)
         ]
 
     @staticmethod

@@ -165,7 +165,13 @@ def fetch_roots(trees: List[MerkleTree]) -> list:
     """Root bytes of several trees, fetched in one device-to-host copy;
     each tree keeps its root. A tree with lanes gives the list of its
     lanes' roots."""
-    for tree, digest in zip(trees, fetch_together([t.root_digest() for t in trees])):
+    return keep_roots(trees, fetch_together([t.root_digest() for t in trees]))
+
+
+def keep_roots(trees: List[MerkleTree], digests) -> list:
+    """Each tree keeps the root bytes of its fetched root digest (a list
+    per lane for a tree with lanes); returns them."""
+    for tree, digest in zip(trees, digests):
         tree._root_bytes = (digest_to_bytes(digest) if tree.lanes is None
                             else [digest_to_bytes(d) for d in digest])
     return [tree._root_bytes for tree in trees]

@@ -11,7 +11,11 @@ SPMD-controller style of parallel/multihost.py).
 Layout: row blocks, JAX's P(axis, None). Rank r of W holds rows
 [r N/W, (r+1) N/W) of every evaluation-domain array, in natural order.
 Every function here takes and returns such a block (`local_rows` cuts
-one from a replicated array, `gather_rows` joins the blocks back).
+one from a replicated array, `gather_rows` joins the blocks back,
+`rows_to_host` brings them to rank 0's host one at a time). The FRI
+ladder (parallel/fri.py) deals its folded blocks to the ranks in another
+order: an owner order, order[k] the rank that holds natural block k,
+which these three also take.
 
 - `make_mesh`: a 1-D DeviceMesh over the process group;
 - `sharded_lde`: the reference's `lde_using_multiple_cosets`
@@ -25,8 +29,9 @@ one from a replicated array, `gather_rows` joins the blocks back).
 - `four_step_intt`, `sharded_icoset_ntt`, `sharded_coset_lde_rows`.
 
 Every NTT runs through the port's `ntt` on `ntt_level` and `mont_mul`,
-as on one device. The exchanges go through `all_to_all` and
-`all_gather`, which count their calls, bytes and seconds by kind in
+as on one device. The exchanges go through `all_to_all` (with
+`all_to_all_v`, its form with uneven parts) and `all_gather`, which
+count their calls, bytes and seconds by kind in
 `collective_counts` (the port's stand-in for the JAX package's audit of
 the compiled program's collectives).
 """
@@ -140,18 +145,58 @@ def all_gather(x, mesh):
     return out
 
 
-def local_rows(x, mesh):
-    """This rank's row block of a replicated (..., N, L) array (a view)."""
-    n = x.shape[-2] // mesh.size()
+def all_to_all_v(x, send, recv, mesh):
+    """Rows to the other ranks in uneven parts: x (sum(send), ...) holds
+    send[i] rows for rank i, in rank order; returns the (sum(recv), ...)
+    rows received, recv[i] of them from rank i, in rank order (one
+    `all_to_all_single` with split sizes, counted as an all_to_all)."""
+    x = x.contiguous()
+    out = torch.empty((sum(recv),) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     r = mesh.get_local_rank()
-    return x[..., r * n:(r + 1) * n, :]
+    row_bytes = out[:1].nbytes if out.shape[0] else 0
+    with _counted("all_to_all", x, (sum(recv) - recv[r]) * row_bytes):
+        dist.all_to_all_single(out, x, output_split_sizes=list(recv),
+                               input_split_sizes=list(send), group=mesh.get_group())
+    return out
 
 
-def gather_rows(x, mesh):
+def local_rows(x, mesh, order=None):
+    """This rank's row block of a replicated (..., N, L) array (a view; a
+    numpy array works too): natural block r, or under an owner order the
+    block k with order[k] = r."""
+    n = x.shape[-2] // mesh.size()
+    k = mesh.get_local_rank() if order is None else order.index(mesh.get_local_rank())
+    return x[..., k * n:(k + 1) * n, :]
+
+
+def gather_rows(x, mesh, order=None):
     """Every rank's (..., N/W, L) row block -> the (..., N, L) array on
-    every rank (one all_gather)."""
-    got = all_gather(x, mesh)  # (W, ..., N/W, L)
+    every rank (one all_gather); blocks in an owner order go back to
+    their natural places."""
+    got = all_gather(x, mesh)  # (W, ..., N/W, L), rank order
+    if order is not None:
+        got = got[list(order)]
     return got.movedim(0, -3).reshape(x.shape[:-2] + (-1, x.shape[-1]))
+
+
+def rows_to_host(x, mesh, order=None):
+    """Every rank's (..., N/W, L) row block -> the whole (..., N, L) array
+    in host memory on rank 0, None on the other ranks. The blocks travel
+    one at a time, each from its owner to rank 0 in one all_to_all_v, and
+    each leaves the device as it arrives: no rank holds more than one
+    block beyond its own on its device. order: as in gather_rows."""
+    w, r = mesh.size(), mesh.get_local_rank()
+    rows = x.movedim(-2, 0)  # (N/W, ..., L): all_to_all_v splits the first axis
+
+    def block_of(owner):  # on rank 0 the owner's block, elsewhere nothing
+        if owner == 0:
+            return rows[:len(rows) if r == 0 else 0]
+        send = [len(rows) if r == owner and i == 0 else 0 for i in range(w)]
+        recv = [len(rows) if r == 0 and i == owner else 0 for i in range(w)]
+        return all_to_all_v(rows[:len(rows) if r == owner else 0], send, recv, mesh)
+
+    blocks = [block_of(owner).cpu() for owner in (range(w) if order is None else order)]
+    return torch.cat(blocks).movedim(0, -2) if r == 0 else None
 
 
 def sharded_lde(ops: LimbOps, coeffs, factor: int, mesh, coset: bool = False):

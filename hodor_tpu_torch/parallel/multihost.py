@@ -18,8 +18,10 @@ style).
   (src/iop/blake2s_trivial_iop.rs:131-219), so each rank hashes its
   subtree with no exchange, one all_gather brings the W subtree roots
   (8 words each), and every rank hashes the top log2 W levels: the root
-  is MerkleTree.create's. `sharded_openings` opens such trees at query
-  indices with one all_gather for all of them.
+  is MerkleTree.create's. The blocks may lie on the ranks in an owner
+  order (the FRI ladder's, parallel/fri.py): the top levels then take the
+  subtree roots in natural order. `sharded_openings` opens such trees at
+  query indices with one all_gather for all of them.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 import torch.distributed as dist
 
 from ..field.field import Field
-from ..field.limbs import LimbOps, fetch_together
+from ..field.limbs import LimbOps
 from ..merkle.blake2s import digest_to_bytes, hash_block
 from ..merkle.tree import MerkleTree, take_rows
 from . import all_gather, make_mesh
@@ -101,33 +103,38 @@ class ShardedMerkleTree:
     """A Merkle tree over N leaves held as row blocks: `local`, this
     rank's MerkleTree over its N/W leaves (up to their subtree root), and
     `top`, the log2 W levels above it, replicated: top[0] the (W, 8)
-    subtree roots, top[-1] the (1, 8) root."""
+    subtree roots in natural block order, top[-1] the (1, 8) root.
+    `order`: the owner order, order[k] the rank that holds natural block
+    k (rank k unless the tree was made with another)."""
 
     lanes = None  # one tree (merkle.tree.fetch_roots reads it)
 
-    def __init__(self, local: MerkleTree, top, mesh, field: Field):
+    def __init__(self, local: MerkleTree, top, mesh, field: Field, order):
         self.local = local
         self.top = top
         self.mesh = mesh
         self.field = field
+        self.order = order
         self.size = local.size * mesh.size()
         self._root_bytes = None
 
     @staticmethod
-    def create_many(leaf_blocks, field: Field, mesh) -> List["ShardedMerkleTree"]:
+    def create_many(leaf_blocks, field: Field, mesh, order=None) -> List["ShardedMerkleTree"]:
         """leaf_blocks: (B, N/W, n16), this rank's leaves of B trees. The
         B local trees are built together (one launch a level) and one
-        all_gather brings every tree's subtree roots."""
+        all_gather brings every tree's subtree roots. order: the owner
+        order of the blocks (natural by default)."""
+        order = tuple(range(mesh.size())) if order is None else tuple(order)
         local = MerkleTree.create(leaf_blocks, field)
-        roots = all_gather(local.root_digest(), mesh)  # (W, B, 8)
+        roots = all_gather(local.root_digest(), mesh)[list(order)]  # (W, B, 8), natural order
         top = _top_levels(roots.movedim(0, 1))  # per level (B, W/2^k, 8)
-        return [ShardedMerkleTree(local.lane(b), [level[b] for level in top], mesh, field)
+        return [ShardedMerkleTree(local.lane(b), [level[b] for level in top], mesh, field, order)
                 for b in range(leaf_blocks.shape[0])]
 
     @staticmethod
-    def create(leaf_block, field: Field, mesh) -> "ShardedMerkleTree":
+    def create(leaf_block, field: Field, mesh, order=None) -> "ShardedMerkleTree":
         """leaf_block: (N/W, n16), this rank's leaves."""
-        return ShardedMerkleTree.create_many(leaf_block[None], field, mesh)[0]
+        return ShardedMerkleTree.create_many(leaf_block[None], field, mesh, order)[0]
 
     def root_digest(self):
         """(8,) int32 root digest on the device, the same on every rank."""
@@ -141,37 +148,38 @@ class ShardedMerkleTree:
 
 def sharded_openings(entries, mesh):
     """Openings of sharded trees at global query indices, every rank the
-    same result. entries: list of (ShardedMerkleTree, this rank's (N/W, L)
-    block of its committed values, (Q,) int64 index tensor). The owner of
-    index x (rank x // (N/W)) gives the value and the siblings inside its
-    subtree; the replicated top levels give the log2 W siblings above.
-    Every rank's part of every entry travels in one all_gather and is
-    picked by owner. Returns per entry (values (Q, L), siblings
-    (log2 N, Q, 8)) on the host, in one device-to-host copy (the form
-    of fri.gather_chain_queries)."""
+    same result, on the device (fri.gather_chain_queries fetches them
+    with the rest of a prove's openings). entries: list of (ShardedMerkleTree,
+    this rank's (N/W, L) block of its committed values, (Q,) int64 index
+    tensor). The owner of index x (rank order[x // (N/W)]) gives the
+    value and the siblings inside its subtree; the replicated top levels
+    give the log2 W siblings above. Every rank's part of every entry
+    travels in one all_gather and is picked by owner. Returns per entry
+    (values (Q, L), siblings (log2 N, Q, 8))."""
     r = mesh.get_local_rank()
-    parts, layout = [], []
+    parts, layout, where = [], [], []
     for tree, vals, idx in entries:
         n = tree.local.size
-        mine = (idx // n) == r
-        local_idx = torch.where(mine, idx - r * n, torch.zeros_like(idx))
+        block = idx // n  # natural block of each index
+        owner = torch.tensor(tree.order, dtype=idx.dtype, device=idx.device)[block]
+        mine = owner == r
+        local_idx = torch.where(mine, idx - block * n, torch.zeros_like(idx))
         v = take_rows(vals, local_idx) * mine[:, None]
         s = tree.local.path_digests(local_idx) * mine[None, :, None]
         parts += [v.reshape(-1), s.reshape(-1)]
         layout.append((v.shape, s.shape))
+        where.append((block, owner))
     got = all_gather(torch.cat(parts), mesh)  # (W, total): every rank's parts
     out, at = [], 0
-    for (tree, _, idx), (v_shape, s_shape) in zip(entries, layout):
+    for (tree, _, idx), (v_shape, s_shape), (block, owner) in zip(entries, layout, where):
         q = torch.arange(idx.shape[0], device=idx.device)
-        owner = idx // tree.local.size
         nv, ns = int(np.prod(v_shape)), int(np.prod(s_shape))
         v = got[:, at:at + nv].reshape((-1,) + tuple(v_shape))[owner, q]  # (Q, L)
         s = got[:, at + nv:at + nv + ns].reshape((-1,) + tuple(s_shape))[owner, :, q]  # (Q, d, 8)
         at += nv + ns
-        upper = [level[(owner >> k) ^ 1] for k, level in enumerate(tree.top[:-1])]
-        out += [v, torch.cat([s.movedim(0, 1)] + [u[None] for u in upper], dim=0)]
-    host = fetch_together(out)
-    return list(zip(host[0::2], host[1::2]))
+        upper = [level[(block >> k) ^ 1] for k, level in enumerate(tree.top[:-1])]
+        out.append((v, torch.cat([s.movedim(0, 1)] + [u[None] for u in upper], dim=0)))
+    return out
 
 
 def sharded_merkle_root(ops: LimbOps, leaf_limbs, mesh):

@@ -12,7 +12,7 @@ import contextlib
 import dataclasses
 import json
 import time
-from typing import List
+from typing import Dict, List
 
 import torch
 
@@ -46,6 +46,13 @@ class StageTimer:
 
     def total(self) -> float:
         return sum(r.seconds for r in self.records)
+
+    def as_dict(self) -> Dict[str, float]:
+        """Seconds by stage name, a name's records summed."""
+        out: Dict[str, float] = {}
+        for r in self.records:
+            out[r.name] = out.get(r.name, 0.0) + r.seconds
+        return out
 
     def to_json(self) -> str:
         return json.dumps(

@@ -23,8 +23,12 @@ prove_batch, which vmaps the same stages).
 (parallel/): every rank runs `prove` on the same witness and returns the
 same proof. Stage 1 and stage G hold the f- and g-LDEs and their trees
 as row blocks (`sharded_lde`, `ShardedMerkleTree`); G's composition and
-DEEP run on row blocks (ali/instance.py); FRI runs on h1 and h2 gathered
-onto every rank, and the f and g openings come from the owners' blocks.
+DEEP run on row blocks (ali/instance.py); the FRI ladders fold and commit
+the ranks' row blocks of h1 and h2 down to a fixed tail
+(parallel/fri.py), and every opening of a sharded layer or oracle comes
+from its owner's block. A checkpoint under a mesh holds the same whole
+arrays as on one device: rank 0 writes them, the blocks reaching it one
+at a time, and a resume takes each rank's rows.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .ali import ALIInstance
 from .arp import ARPInstance, InstanceProperties, Witness
@@ -45,9 +50,10 @@ from .fri import FRIProof, NaiveFriIop
 from .fri.fri import gather_chain_queries
 from .merkle.tree import IopQuery, MerkleTree, digest_to_bytes, fetch_roots
 from .ntt import lde
-from .parallel import (collective_snapshot, collectives_since, gather_rows, local_rows,
+from .parallel import (collective_snapshot, collectives_since, local_rows, rows_to_host,
                        sharded_lde)
-from .parallel.multihost import ShardedMerkleTree, sharded_openings
+from .parallel.fri import ladder_from_layers
+from .parallel.multihost import ShardedMerkleTree
 from .profiling import StageTimer
 from .transcript import Blake2sTranscript, bytes_to_challenge_index
 
@@ -133,14 +139,39 @@ class Prover:
         if self.mesh is not None:
             self.last_exchanges[name] = collectives_since(before)
 
-    def _rebuilt(self, values, saved_roots: List[bytes], stage: str) -> List[MerkleTree]:
-        """Trees rebuilt from a checkpoint's saved values (a list of
-        (N, L) tensors), each root held to the saved one."""
-        trees = [MerkleTree.create(v, self.field) for v in values]
+    def _check_roots(self, trees, saved_roots: List[bytes], stage: str) -> None:
+        """Trees rebuilt from a checkpoint's saved values, each root held to
+        the saved one. The roots are the same on every rank of a mesh, so
+        a mismatch raises on every rank alike."""
         if fetch_roots(trees) != list(saved_roots):
             raise SynthesisError(f"checkpoint stage {stage!r}: a tree rebuilt from the saved "
                                  "values has another root than the saved one")
-        return trees
+
+    def _rows(self, arr):
+        """A checkpoint's whole (..., N, n16) evaluation-domain array ->
+        this rank's row block of it on the device (the whole array on one
+        device); only those rows leave the host."""
+        return from_numpy_limbs(arr if self.mesh is None else local_rows(arr, self.mesh),
+                                self.device)
+
+    def _to_file(self, t, order=None):
+        """t as a checkpoint array, (..., n16) uint32 limbs: on one device
+        as it is; under a mesh on rank 0 alone (None on the others), where
+        order (an owner order) says that t is this rank's row block, whose
+        whole array reaches rank 0 block by block (parallel.rows_to_host)."""
+        if self.mesh is None:
+            return to_numpy_limbs(t)
+        if order is not None:
+            t = rows_to_host(t, self.mesh, order)
+        return None if self.mesh.get_local_rank() else to_numpy_limbs(t)
+
+    def _save(self, ck: ProveCheckpoint, stage: str, arrays: dict, meta: dict) -> None:
+        """Save a stage; under a mesh rank 0 writes, and every rank waits
+        at a barrier until it has."""
+        if self.mesh is None or self.mesh.get_local_rank() == 0:
+            ck.save(stage, arrays, meta)
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.get_group())
 
     def prove(self, witness: Witness, checkpoint_dir: Optional[str] = None) -> InstanceProof:
         """Full prove pipeline (src/prover/mod.rs:66-174). witness: the
@@ -150,17 +181,22 @@ class Prover:
         checkpoint_dir (optional): persist each completed Fiat-Shamir
         stage (checkpoint.py) so that an interrupted prove resumes from
         the last stage boundary on a re-run with the same directory; the
-        resumed proof is byte-identical."""
+        resumed proof is byte-identical. The files hold whole arrays, so a
+        directory resumes on one device or under a mesh of any size, in
+        either package. Under a mesh every rank reads the directory and
+        rank 0 writes it: with ranks on several hosts it must lie on a
+        file system that every rank sees."""
         ops = self.ops
         field = self.field
         ck, done = None, []
+        # the owner order of the evaluation-domain arrays' row blocks (for
+        # _to_file): natural under a mesh, none on one device
+        blocks = None if self.mesh is None else tuple(range(self.mesh.size()))
         if checkpoint_dir is not None:
-            if self.mesh is not None:
-                raise NotImplementedError(
-                    "checkpoint_dir under a mesh: not ported (ROADMAP.md Queue 1, "
-                    "\"checkpoint under a mesh\")")
             ck = ProveCheckpoint(checkpoint_dir)
             done = ck.completed_prefix()
+            if self.mesh is not None:  # every rank reads before rank 0 writes
+                dist.barrier(group=self.mesh.get_group())
         transcript = Blake2sTranscript(field)
         # exposed for Fiat-Shamir audits (the golden-vector tests)
         self.last_transcript = transcript
@@ -175,18 +211,15 @@ class Prover:
             self.last_transcript = transcript
             return arrays, meta
 
-        def limbs(arr):
-            return from_numpy_limbs(arr, self.device)
-
         # 1+2. witness -> polys -> LDEs -> oracles (src/prover/mod.rs:69-80)
         if "stage1" in done:
             with timer.stage("witness+f_ldes+f_oracles(resumed)"):
                 arrays, meta = load("stage1")
-                witness_polys = limbs(arrays["witness_polys"])
-                f_ldes = limbs(arrays["f_ldes"])
-                f_oracles = self._rebuilt(list(f_ldes), [bytes.fromhex(h) for h in meta["f_roots"]],
-                                          "stage1")
-                f_iop_roots = [o.get_root() for o in f_oracles]
+                witness_polys = from_numpy_limbs(arrays["witness_polys"], self.device)
+                f_ldes = self._rows(arrays["f_ldes"])
+                f_oracles = self._trees(f_ldes)
+                f_iop_roots = [bytes.fromhex(h) for h in meta["f_roots"]]
+                self._check_roots(f_oracles, f_iop_roots, "stage1")
         else:
             with self._stage(timer, "witness+f_ldes+f_oracles"):
                 w_dev = self.arp.encode_witness(witness)
@@ -198,38 +231,38 @@ class Prover:
             for rb in f_iop_roots:
                 transcript.commit_bytes(rb)
             if ck is not None:
-                ck.save("stage1", {"witness_polys": to_numpy_limbs(witness_polys),
-                                   "f_ldes": to_numpy_limbs(f_ldes)},
-                        {"f_roots": [rb.hex() for rb in f_iop_roots],
-                         "transcript": transcript.snapshot()})
+                self._save(ck, "stage1", {"witness_polys": self._to_file(witness_polys),
+                                          "f_ldes": self._to_file(f_ldes, blocks)},
+                           {"f_roots": [rb.hex() for rb in f_iop_roots],
+                            "transcript": transcript.snapshot()})
 
         # 3+4. G composition + G LDE + oracle (src/prover/mod.rs:89-95)
         if "stage_g" in done:
             with timer.stage("g_composition+g_oracle(resumed)"):
                 arrays, meta = load("stage_g")
-                g_poly = limbs(arrays["g_poly"])
-                g_lde_vals = limbs(arrays["g_lde_vals"])
-                (g_oracle,) = self._rebuilt([g_lde_vals], [bytes.fromhex(meta["g_root"])],
-                                            "stage_g")
-                g_iop_root = g_oracle.get_root()
+                g_poly = from_numpy_limbs(arrays["g_poly"], self.device)
+                g_lde_vals = self._rows(arrays["g_lde_vals"])
+                (g_oracle,) = self._trees(g_lde_vals[None])
+                g_iop_root = bytes.fromhex(meta["g_root"])
+                self._check_roots([g_oracle], [g_iop_root], "stage_g")
         else:
             with self._stage(timer, "g_composition+g_oracle"):
                 g_poly = self.ali.calculate_g(transcript, witness_polys)  # (D, L)
                 g_lde_vals = self._lde(g_poly)
                 (g_oracle,) = self._trees(g_lde_vals[None])
-                g_iop_root = g_oracle.get_root()
+                (g_iop_root,) = fetch_roots([g_oracle])
             transcript.commit_bytes(g_iop_root)
             if ck is not None:
-                ck.save("stage_g", {"g_poly": to_numpy_limbs(g_poly),
-                                    "g_lde_vals": to_numpy_limbs(g_lde_vals)},
-                        {"g_root": g_iop_root.hex(), "transcript": transcript.snapshot()})
+                self._save(ck, "stage_g", {"g_poly": self._to_file(g_poly),
+                                           "g_lde_vals": self._to_file(g_lde_vals, blocks)},
+                           {"g_root": g_iop_root.hex(), "transcript": transcript.snapshot()})
 
         # 5. DEEP (src/prover/mod.rs:99-106)
         if "deep" in done:
             with timer.stage("deep(resumed)"):
                 arrays, meta = load("deep")
-                h1_lde = limbs(arrays["h1_lde"])
-                h2_lde = limbs(arrays["h2_lde"])
+                h1_lde = self._rows(arrays["h1_lde"])
+                h2_lde = self._rows(arrays["h2_lde"])
                 f_at_z_m = [int(v) for v in meta["f_at_z_m"]]
         else:
             with self._stage(timer, "deep"):
@@ -237,48 +270,47 @@ class Prover:
                     witness_polys, f_ldes, g_poly, g_lde_vals, transcript
                 )
             if ck is not None:
-                ck.save("deep", {"h1_lde": to_numpy_limbs(h1_lde),
-                                 "h2_lde": to_numpy_limbs(h2_lde)},
-                        {"f_at_z_m": [str(v) for v in f_at_z_m],
-                         "transcript": transcript.snapshot()})
+                self._save(ck, "deep", {"h1_lde": self._to_file(h1_lde, blocks),
+                                        "h2_lde": self._to_file(h2_lde, blocks)},
+                           {"f_at_z_m": [str(v) for v in f_at_z_m],
+                            "transcript": transcript.snapshot()})
         del witness_polys, g_poly
 
-        # 6. FRI for h1 and h2 (src/prover/mod.rs:112-113)
+        # 6. FRI for h1 and h2 (src/prover/mod.rs:112-113); under a mesh on
+        # the ranks' row blocks of them
         if "fri" in done:
             with timer.stage("fri_h1+h2(resumed)"):
                 arrays, meta = load("fri")
                 protos = []
                 for tag, lde_vals in (("h1", h1_lde), ("h2", h2_lde)):
-                    inter = [limbs(arrays[f"{tag}_v{i}"])
-                             for i in range(int(meta[f"{tag}_rounds"]))]
-                    trees = self._rebuilt([lde_vals] + inter,
-                                          [digest_to_bytes(r) for r in arrays[f"{tag}_roots"]],
-                                          "fri")
+                    trees, inter = ladder_from_layers(
+                        ops, lde_vals, [arrays[f"{tag}_v{i}"]
+                                        for i in range(int(meta[f"{tag}_rounds"]))], self.mesh)
+                    self._check_roots(trees, [digest_to_bytes(r) for r in arrays[f"{tag}_roots"]],
+                                      "fri")
                     protos.append(NaiveFriIop._assemble_prototype(
                         ops, trees, inter, arrays[f"{tag}_fc"],
-                        lde_vals.shape[0] // self.lde_factor, self.fri_final_degree_plus_one,
+                        trees[0].size // self.lde_factor, self.fri_final_degree_plus_one,
                         self.lde_factor))
                 h1_proto, h2_proto = protos
         else:
             with self._stage(timer, "fri_h1+h2"):
-                if self.mesh is not None:
-                    # the ladders run on every rank over the whole h1 and h2:
-                    # a fold pairs rows i and i + N/2, which lie on two ranks
-                    h1_lde, h2_lde = (gather_rows(h, self.mesh) for h in (h1_lde, h2_lde))
                 h1_proto, h2_proto = NaiveFriIop.proofs_from_ldes(
-                    ops, [h1_lde, h2_lde], self.lde_factor, self.fri_final_degree_plus_one
-                )
+                    ops, [h1_lde, h2_lde], self.lde_factor, self.fri_final_degree_plus_one,
+                    self.mesh)
             if ck is not None:
                 arrays = {}
                 meta = {"transcript": transcript.snapshot()}
                 for tag, proto in (("h1", h1_proto), ("h2", h2_proto)):
                     meta[f"{tag}_rounds"] = len(proto.intermediate_values)
-                    for i, v in enumerate(proto.intermediate_values):
-                        arrays[f"{tag}_v{i}"] = to_numpy_limbs(v)
+                    for i, (tree, v) in enumerate(zip(proto.intermediate_commitments,
+                                                      proto.intermediate_values)):
+                        arrays[f"{tag}_v{i}"] = self._to_file(
+                            v, tree.order if isinstance(tree, ShardedMerkleTree) else None)
                     arrays[f"{tag}_roots"] = np.stack(
                         [np.frombuffer(rb, dtype="<u4") for rb in proto.get_roots()])
                     arrays[f"{tag}_fc"] = to_numpy_limbs(ops.encode([proto.final_coefficients])[0])
-                ck.save("fri", arrays, meta)
+                self._save(ck, "fri", arrays, meta)
 
         # 7. commit final roots + coefficients (src/prover/mod.rs:118-127)
         for proto in (h1_proto, h2_proto):
@@ -286,32 +318,24 @@ class Prover:
             for el in proto.get_final_coefficients():
                 transcript.commit_field_element(el)
 
-        # 8. challenge indices (src/prover/mod.rs:129-139)
-        x_h1 = bytes_to_challenge_index(
-            transcript.get_challenge_bytes(), h1_lde.shape[0], self.lde_factor
-        )
-        x_h2 = bytes_to_challenge_index(
-            transcript.get_challenge_bytes(), h2_lde.shape[0], self.lde_factor
-        )
+        # 8. challenge indices (src/prover/mod.rs:129-139) on the LDE domains
+        n_h1, n_h2 = (proto.l0_commitment.size for proto in (h1_proto, h2_proto))
+        x_h1 = bytes_to_challenge_index(transcript.get_challenge_bytes(), n_h1, self.lde_factor)
+        x_h2 = bytes_to_challenge_index(transcript.get_challenge_bytes(), n_h2, self.lde_factor)
 
         # 9+10. all query openings: both FRI chains' coset walks
         # (src/prover/mod.rs:142-143) and the f/g oracle openings
-        # (:146-151), one gather and one fetch
+        # (:146-151), one gather (under a mesh one all_gather for every
+        # sharded tree) and one fetch
         with self._stage(timer, "queries"):
             h1_plan = NaiveFriIop.query_plan(h1_proto, h1_lde, x_h1)
             h2_plan = NaiveFriIop.query_plan(h2_proto, h2_lde, x_h2)
-            chain_data = h1_plan[2] + h2_plan[2]
-            idx_arrays = h1_plan[3] + h2_plan[3]
             x1 = torch.tensor([x_h1], dtype=torch.int64, device=self.device)
             x2 = torch.tensor([x_h2], dtype=torch.int64, device=self.device)
-            oracles = [(o, f_ldes[r], x1) for r, o in enumerate(f_oracles)]
-            oracles.append((g_oracle, g_lde_vals, x2))
-            if self.mesh is None:
-                gathered = gather_chain_queries(chain_data + [o[:2] for o in oracles],
-                                                idx_arrays + [o[2] for o in oracles])
-            else:
-                gathered = (gather_chain_queries(chain_data, idx_arrays)
-                            + sharded_openings(oracles, self.mesh))
+            chain_data = (h1_plan[2] + h2_plan[2] + [(o, f_ldes[r]) for r, o in enumerate(f_oracles)]
+                          + [(g_oracle, g_lde_vals)])
+            idx_arrays = h1_plan[3] + h2_plan[3] + [x1] * len(f_oracles) + [x2]
+            gathered = gather_chain_queries(chain_data, idx_arrays)
             n1, n2 = len(h1_plan[2]), len(h2_plan[2])
             fri_proof_h1 = NaiveFriIop.proof_from_gathered(
                 h1_proto, h1_plan[0], h1_plan[1], gathered[:n1], ops

@@ -1,8 +1,10 @@
 """The port's smaller public helpers against their hodor_tpu counterparts
 on the same inputs, on CPU tensors: ntt.evaluate_at_domain_for_degree_one,
 ntt.bit_reverse_indices, ntt.matmul.intt_matmul, field.ops_for,
-merkle.blake2s.compress and utils.native.available. Tolerance 0."""
+merkle.blake2s.compress, utils.native.available, checkpoint.ProveCheckpoint.clear,
+profiling.StageTimer.as_dict and LimbOps.assert_nonzero. Tolerance 0."""
 
+import os
 import random
 import shutil
 
@@ -11,17 +13,23 @@ import numpy as np
 import pytest
 import torch
 
+import hodor_tpu.checkpoint as jcheckpoint
+import hodor_tpu.errors as jerrors
 import hodor_tpu.field as jfield
+import hodor_tpu.profiling as jprofiling
 import hodor_tpu.merkle.blake2s as jblake2s
 import hodor_tpu.ntt as jntt
 import hodor_tpu.ntt.matmul as jmatmul
 import hodor_tpu.utils.native as jnative
+from hodor_tpu_torch.checkpoint import STAGES, ProveCheckpoint
 from hodor_tpu_torch.domain import Domain
+from hodor_tpu_torch.errors import DivisionByZeroError
 from hodor_tpu_torch.field import F257, F_BLS, F_STARK, LimbOps, from_numpy_limbs, ops_for
 from hodor_tpu_torch.field import to_numpy_limbs
 from hodor_tpu_torch.merkle.blake2s import compress
 from hodor_tpu_torch.ntt import bit_reverse_indices, evaluate_at_domain_for_degree_one
 from hodor_tpu_torch.ntt.matmul import intt_matmul
+from hodor_tpu_torch.profiling import StageRecord, StageTimer
 from hodor_tpu_torch.utils import native
 
 torch.set_num_threads(1)
@@ -142,3 +150,55 @@ def test_native_available_is_false_when_the_build_fails(monkeypatch):
             native.vdf_witness_native(F_STARK, 1, 2, 3)
     finally:
         native._lib.cache_clear()
+
+
+def test_checkpoint_clear_empties_the_directory(tmp_path):
+    """Both packages' clear() delete every saved stage of a directory
+    either wrote, and nothing else in it."""
+    for make, other in ((ProveCheckpoint, jcheckpoint.ProveCheckpoint),
+                        (jcheckpoint.ProveCheckpoint, ProveCheckpoint)):
+        ckdir = str(tmp_path / make.__module__)
+        ck = make(ckdir)
+        for stage in STAGES:
+            ck.save(stage, {"a": np.arange(3, dtype=np.uint32)}, {"stage": stage})
+        (tmp_path / make.__module__ / "keep.txt").write_text("kept")
+        assert other(ckdir).completed_prefix() == list(STAGES)
+        other(ckdir).clear()
+        assert ck.completed_prefix() == [] and make(ckdir).completed_prefix() == []
+        assert sorted(os.listdir(ckdir)) == ["keep.txt"]
+        other(ckdir).clear()  # clearing an empty directory is no error
+
+
+def test_stage_timer_as_dict():
+    """Seconds by stage name, repeated names summed, as hodor_tpu's."""
+    records = [("a", 0.5), ("b", 0.25), ("a", 1.0), ("c(resumed)", 0.125)]
+    timer, jtimer = StageTimer("cpu"), jprofiling.StageTimer()
+    timer.records = [StageRecord(n, t) for n, t in records]
+    jtimer.records = [jprofiling.StageRecord(n, t) for n, t in records]
+    assert timer.as_dict() == jtimer.as_dict() == {"a": 1.5, "b": 0.25, "c(resumed)": 0.125}
+    with timer.stage("d"):
+        pass
+    assert list(timer.as_dict()) == ["a", "b", "c(resumed)", "d"]
+    assert StageTimer("cpu").as_dict() == {}
+
+
+@pytest.mark.parametrize("field", [F257, F_STARK], ids=["F257", "F_STARK"])
+def test_assert_nonzero(field):
+    """Raises DivisionByZeroError on an array with a zero element, in
+    Montgomery or canonical form, as hodor_tpu's; passes without one."""
+    ops, jops = LimbOps(field, "cpu"), jfield.ops_for(getattr(jfield, field.name))
+    rng = random.Random(3)
+    vals = [rng.randrange(1, field.p) for _ in range(7)]
+    for values, raises in ((vals, False), (vals[:3] + [0] + vals[3:], True), ([0], True)):
+        enc = ops.encode(values)
+        for arr in (enc, ops.from_mont_arr(enc)):
+            if raises:
+                with pytest.raises(DivisionByZeroError, match="zero element"):
+                    ops.assert_nonzero(arr)
+            else:
+                ops.assert_nonzero(arr)
+        if raises:
+            with pytest.raises(jerrors.DivisionByZeroError):
+                jops.assert_nonzero(jops.encode(values))
+        else:
+            jops.assert_nonzero(jops.encode(values))

@@ -5,8 +5,9 @@ verifiers accept the proof and reject a tampered copy, a 4-row trace and
 lde 2 (the replicated fallbacks at W = 4) prove as on one device, each rank's
 f-LDE block has N/W rows (the port of tests/test_distributed.py's
 per-device shrink), prove_batch under a mesh equals the sequential
-proves (tests/test_batch.py's mesh case), a checkpoint under a mesh is
-refused; and the dry runs of tools/dryrun.py on the CPU.
+proves (tests/test_batch.py's mesh case); and the dry runs of
+tools/dryrun.py on the CPU. Checkpoint/resume under a mesh:
+tests/test_torch_mesh_checkpoint.py.
 
 Each W is one spawn of W ranks that proves everything; the ranks import
 this module, so JAX is imported only inside the tests."""
@@ -57,7 +58,7 @@ def _rank_proves(mesh, device):
     """One rank: both goldens (the cubic one through from_config), the
     small shapes' proofs under the mesh and on this rank's device alone,
     the f-LDE block's shape, a two-witness prove_batch and its sequential
-    proves, and whether a checkpoint is refused."""
+    proves."""
     out = {}
     for name, (make, lde, fri) in SMALL.items():
         witness, props = make()
@@ -79,11 +80,6 @@ def _rank_proves(mesh, device):
     other, _ = VDF(F_STARK, 3, 5, 31).into_arp()
     out["batch"] = [serialize_proof(p, F_STARK) for p in prover.prove_batch([witness, other])]
     out["sequential"] = [out["vdf_fstark_t32"][0], serialize_proof(prover.prove(other), F_STARK)]
-    try:
-        prover.prove(witness, checkpoint_dir=os.devnull)
-        out["checkpoint_refused"] = False
-    except NotImplementedError as e:
-        out["checkpoint_refused"] = "checkpoint under a mesh" in str(e)
     return out
 
 
@@ -168,11 +164,6 @@ def test_prove_batch_under_mesh_equals_sequential_proves(spawned, w):
     for ranks in spawned(w):
         assert ranks["batch"] == ranks["sequential"]
         assert ranks["batch"][0] != ranks["batch"][1]
-
-
-@pytest.mark.parametrize("w", WORLDS)
-def test_checkpoint_under_mesh_is_refused(spawned, w):
-    assert all(ranks["checkpoint_refused"] for ranks in spawned(w))
 
 
 def test_dryrun_multichip_on_cpu(capsys):

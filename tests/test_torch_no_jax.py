@@ -21,7 +21,8 @@ missing = [m for m in ("hodor_tpu_torch.utils.native", "hodor_tpu_torch.models.v
                       "hodor_tpu_torch.poly", "hodor_tpu_torch.models.fp2",
                       "hodor_tpu_torch.models.tensor_lde", "hodor_tpu_torch.utils.poly_scalar",
                       "hodor_tpu_torch.utils.hashers", "hodor_tpu_torch.parallel",
-                      "hodor_tpu_torch.parallel.multihost", "hodor_tpu_torch.tools.dryrun",
+                      "hodor_tpu_torch.parallel.multihost", "hodor_tpu_torch.parallel.fri",
+                      "hodor_tpu_torch.tools.dryrun",
                       "hodor_tpu_torch.tools.multihost_worker")
            if m not in names]
 import chip_smoke
