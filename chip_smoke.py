@@ -70,6 +70,19 @@ Phases, each reported on its own line:
  12. over F_STARK at lde factor 8, the same for the six-register instance
      with polyvariate cross-register terms at 2^20 rows (its witness a
      Python loop, timed) and the Repeated/Sparse one at 2^16 rows;
+ 14. (after phase 12, before phase 13) the memory-bounded forms (trees
+     that keep only their root, leaves hashed in chunks, LDEs coset by
+     coset, DEEP's domain points not kept; profiling.form_counts), with no
+     earlier prover alive: 14a the main path's instance and witness at
+     2^20 rows with every form forced (forced_forms) and the peak memory
+     of every stage, its warm proof
+     byte-equal to phase 5's and verified, more blake2s launches than
+     phase 5's (the rebuilt trees), its peak beside phase 5's; 14b the
+     quadratic VDF over F_STARK at 2^22 rows, lde 16, FRI to a constant,
+     native witness, as phase 5, with the peak allocated and reserved
+     memory of every stage, every form engaged, the prover's ops.tables
+     with their bytes, and the most int32 elements handed to any kernel
+     (below 2^31). Every earlier phase fails if a form engages in it;
  13. multi-device proving, Prover(mesh=...) over torch.distributed, the
      quadratic VDF over F_STARK at lde 16 from the native witness: 13a
      one rank over NCCL in this process at 2^20 rows, 13b two ranks
@@ -93,7 +106,7 @@ Phases, each reported on its own line:
      directory the two ranks wrote on one device, byte-equal too.
 Phase 8 runs right after phase 5, whose prover it reuses and then frees;
 every other phase lets its prover go when it returns. Every path of
-phases 5-12 zeroes the launch counts just before it runs and reads them
+phases 5-12 and 14 zeroes the launch counts just before it runs and reads them
 just after, names the kernels it must have launched and prints the
 launches of each ntt_level body; the 2^20-row F_STARK paths must have run
 the tensor-core body, phases 10 and 11 the butterfly body alone.
@@ -104,6 +117,7 @@ is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -116,6 +130,7 @@ LOG_ROWS_LEVEL_FORMS = 16
 LOG_ROWS_WITNESS_FORMS = 14
 LOG_ROWS_BATCH_SMALL = 18
 LOG_ROWS_MESH_W4 = 16
+LOG_ROWS_LARGE = 22
 
 # Published peaks of one H100 SXM: device memory 3.35 TB/s; int8 on the
 # tensor cores 1,979 TOP/s (a multiply-add is two operations); 32-bit
@@ -694,23 +709,54 @@ def require_launched(path: str, counts, names) -> None:
 
 
 def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_factor: int = 16,
-                  fri_final_degree_plus_one: int = 1, ntt_bodies=("mma", "butterfly", "limb")):
+                  fri_final_degree_plus_one: int = 1, ntt_bodies=("mma", "butterfly", "limb"),
+                  forms: bool = False, per_stage: bool = False):
     """Set-up, cold and warm prove, verify and a tampered proof for one
     instance: into_arp() gives (witness, props); native: whether the
     witness must come from the native chain as a packed array; ntt_bodies:
-    the ntt_level bodies the path may run, the first of which it must run.
-    Returns the launch counts of the set-up + cold prove + verify, their
-    ntt_level bodies, and the warm prove: {"counts", "ntt_bodies",
-    "mont_mul_bodies" (its launches), "proof" (its bytes, serialized before
-    the tamper), "wall", "peaks" (cold, warm, GiB), "prover", "witness",
-    "props"}."""
+    the ntt_level bodies the path may run, the first of which it must run;
+    forms: whether the memory-bounded forms (profiling.form_counts) may
+    engage, else the phase fails if one does; per_stage: the peak memory
+    of every stage of both proves, allocated and reserved, printed as the
+    stage ends (tools/memory_profile.stage_peaks), and the proves' peaks
+    taken from them. Returns the launch counts of the set-up + cold prove
+    + verify, their ntt_level bodies, and the warm prove: {"counts",
+    "ntt_bodies", "mont_mul_bodies" (its launches), "proof" (its bytes,
+    serialized before the tamper), "wall", "peaks" (cold, warm, GiB),
+    "forms" (cold, warm form counts), "stages" (cold, warm stage records,
+    with per_stage), "prover", "witness", "props"}."""
     import numpy as np
     import torch
 
+    from hodor_tpu_torch import profiling
     from hodor_tpu_torch.field import kernels as K
     from hodor_tpu_torch.proof_io import serialize_proof
     from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.tools.memory_profile import stage_peaks
     from hodor_tpu_torch.verifier import Verifier
+
+    def prove_once():
+        """(proof, wall, peak allocated, peak reserved, stage records)."""
+        profiling.reset_form_counts()
+        records = []
+        t0 = time.perf_counter()
+        if per_stage:
+            with stage_peaks(records, lambda line: log(f"{label}:{line}")):
+                proof = prover.prove(witness)
+        else:
+            proof = prover.prove(witness)
+        wall = time.perf_counter() - t0
+        if per_stage:
+            return (proof, wall, max(r[1] for r in records), max(r[2] for r in records),
+                    records)
+        return proof, wall, torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved(), []
+
+    def check_forms(run: str):
+        engaged = dict(profiling.form_counts)
+        log(f"{label}: memory-bounded forms in the {run} prove: {json.dumps(engaged)}")
+        if not forms and any(engaged.values()):
+            raise AssertionError(f"{label}: a memory-bounded form engaged at this size: {engaged}")
+        return engaged
 
     t0 = time.perf_counter()
     witness, props = into_arp()
@@ -732,10 +778,10 @@ def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_fac
     prover = Prover(props.clone(), lde_factor=lde_factor,
                     fri_final_degree_plus_one=fri_final_degree_plus_one, device=dev)
     torch.cuda.synchronize()
-    log(f"{label}: prover set-up {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    proof = prover.prove(witness)
-    cold = time.perf_counter() - t0
+    log(f"{label}: prover set-up {time.perf_counter() - t0:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    proof, cold, peak_cold, reserved_cold, stages_cold = prove_once()
+    forms_cold = check_forms("cold")
     verifier = Verifier(props, lde_factor=lde_factor)
     t0 = time.perf_counter()
     if not verifier.verify(proof):
@@ -743,7 +789,6 @@ def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_fac
     verify_s = time.perf_counter() - t0
     counts = dict(K.launch_counts)
     bodies = dict(K.ntt_level_body_counts)
-    peak_cold = torch.cuda.max_memory_allocated()
     log(f"{label}: cold prove {cold:.3f} s (stage walls: {prover.last_timings.to_json()})")
     log(f"{label}: verify {verify_s:.3f} s -> accepted")
     log(f"{label}: launches in set-up + cold prove + verify: {json.dumps(counts)}")
@@ -755,20 +800,20 @@ def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_fac
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    t0 = time.perf_counter()
-    proof = prover.prove(witness)
-    warm = time.perf_counter() - t0
-    peak_warm = torch.cuda.max_memory_allocated()
+    proof, warm, peak_warm, reserved_warm, stages_warm = prove_once()
+    forms_warm = check_forms("warm")
     warm_run = {"counts": dict(K.launch_counts), "ntt_bodies": dict(K.ntt_level_body_counts),
                 "mont_mul_bodies": dict(K.mont_mul_body_counts),
                 "proof": serialize_proof(proof, field), "wall": warm,
-                "peaks": (peak_cold / 2**30, peak_warm / 2**30), "prover": prover,
-                "witness": witness, "props": props}
+                "peaks": (peak_cold / 2**30, peak_warm / 2**30),
+                "forms": (forms_cold, forms_warm), "stages": (stages_cold, stages_warm),
+                "prover": prover, "witness": witness, "props": props}
     log(f"{label}: warm prove {warm:.3f} s (stage walls: {prover.last_timings.to_json()})")
     log(f"{label}: launches in the warm prove: {json.dumps(warm_run['counts'])}, ntt_level by "
         f"body {json.dumps(warm_run['ntt_bodies'])}")
     log(f"{label}: peak device memory cold {peak_cold / 2**30:.3f} GiB, "
-        f"warm {peak_warm / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+        f"warm {peak_warm / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); reserved cold "
+        f"{reserved_cold / 2**30:.3f} GiB, warm {reserved_warm / 2**30:.3f} GiB")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     w_dev = prover.arp.encode_witness(witness)
@@ -1134,6 +1179,132 @@ def phase_support(dev, log_rows: int) -> None:
         "to the device tree's")
 
 
+def forced_forms():
+    """Phase 14a's setting of every memory-bounded form's constant: the
+    two size thresholds at 1, so that every tree drops and every LDE runs
+    coset by coset; the two chunk sizes at 2^20 rows, the least that keeps a 2^20-row prove's launches
+    in the thousands (each LDE-sized array in 16 to 32 chunks). Returns
+    [(module, name, value)]."""
+    import hodor_tpu_torch.ali.instance as ali_instance
+    import hodor_tpu_torch.merkle.blake2s as blake2s_module
+    import hodor_tpu_torch.merkle.tree as tree_module
+    import hodor_tpu_torch.ntt as ntt_module
+
+    return [(tree_module, "TREE_DROP_MIN", 1), (ntt_module, "LDE_SEQUENTIAL_MIN", 1),
+            (blake2s_module, "HASH_CHUNK", 1 << 20), (ali_instance, "XS_KEEP_MAX", 1 << 20)]
+
+
+def phase_forms_forced(dev, main_proof: bytes, main_counts, main_peaks):
+    """Phase 14a: the main path's instance and witness at 2^LOG_ROWS rows
+    with every memory-bounded form forced (forced_forms), with per-stage
+    peaks: the warm proof byte-equal to phase 5's, verified
+    (phase_at_size), every form engaged, more blake2s launches than phase
+    5 (the rebuilt trees), and the peak beside phase 5's. Returns the
+    launch counts of set-up + cold prove + verify."""
+    import torch
+
+    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.models import VDF
+
+    label = f"forms forced 2^{LOG_ROWS}"
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    forced = forced_forms()
+    plain = [(module, name, getattr(module, name)) for module, name, _ in forced]
+    for module, name, value in forced:
+        setattr(module, name, value)
+    counts, _, warm = phase_at_size(dev, label, F_STARK,
+                                    VDF(F_STARK, 1, 2, (1 << LOG_ROWS) - 1).into_arp, forms=True,
+                                    per_stage=True)
+    for module, name, value in plain:
+        setattr(module, name, value)
+    if warm["proof"] != main_proof:
+        raise AssertionError(f"{label}: the warm proof differs from phase 5's")
+    idle = [k for run in warm["forms"] for k, v in run.items() if v == 0]
+    if idle:
+        raise AssertionError(f"{label}: forms that did not engage: {idle}")
+    if counts["blake2s"] <= main_counts["blake2s"]:
+        raise AssertionError(f"{label}: blake2s launched {counts['blake2s']} times, no more than "
+                             f"phase 5's {main_counts['blake2s']}: no tree was rebuilt")
+    log(f"{label}: warm proof equals phase 5's ({len(main_proof)} bytes); blake2s launches "
+        f"{counts['blake2s']} against phase 5's {main_counts['blake2s']}; peak device memory "
+        f"cold {warm['peaks'][0]:.3f} / warm {warm['peaks'][1]:.3f} GiB against phase 5's "
+        f"{main_peaks[0]:.3f} / {main_peaks[1]:.3f} GiB")
+    log(f"{label}: phase {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
+@contextlib.contextmanager
+def largest_operands(names):
+    """While active, each kernel wrapper of field/kernels.py named in
+    `names` records in sizes[name] the most int32 elements of any tensor
+    it was given or returned. Yields sizes."""
+    import torch
+
+    from hodor_tpu_torch.field import kernels as K
+
+    sizes = dict.fromkeys(names, 0)
+    plain = {name: getattr(K, name) for name in names}
+
+    def watched(name):
+        def call(*args, **kwargs):
+            out = plain[name](*args, **kwargs)
+            sizes[name] = max([sizes[name], out.numel()] + [
+                a.numel() for a in args if isinstance(a, torch.Tensor)])
+            return out
+        return call
+
+    for name in names:
+        setattr(K, name, watched(name))
+    yield sizes
+    for name in names:
+        setattr(K, name, plain[name])
+
+
+def phase_large(dev):
+    """Phase 14b: the quadratic VDF over F_STARK at 2^LOG_ROWS_LARGE rows,
+    lde 16, FRI to a constant, the native witness, through phase_at_size
+    with per-stage peaks: every memory-bounded form must engage; the keys
+    of the prover's ops.tables with their bytes; the most int32 elements
+    any kernel was handed, which must stay below 2^31 (phase 3 holds no
+    kernel at that size). Returns the launch counts of set-up + cold prove
+    + verify."""
+    import torch
+
+    from hodor_tpu_torch.field import F_STARK
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.tools.memory_profile import table_bytes
+
+    label = f"large 2^{LOG_ROWS_LARGE}"
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with largest_operands(("mont_mul", "mont_pow", "addsub", "blake2s", "ntt_level",
+                           "fri_fold")) as sizes:
+        counts, _, warm = phase_at_size(
+            dev, label, F_STARK, VDF(F_STARK, 1, 2, (1 << LOG_ROWS_LARGE) - 1).into_arp,
+            forms=True, per_stage=True)
+    idle = [k for run in warm["forms"] for k, v in run.items() if v == 0]
+    if idle:
+        raise AssertionError(f"{label}: forms that did not engage: {idle}")
+    for run, records in zip(("cold", "warm"), warm["stages"]):
+        log(f"{label}: {run} stages (name, peak allocated, peak reserved, allocated at the end, "
+            f"GiB): " + json.dumps([(r[0], *(round(b / 2**30, 3) for b in r[1:]))
+                                      for r in records]))
+    tables = table_bytes(warm["prover"].ops.tables)
+    log(f"{label}: ops.tables after the proves, {sum(b for _, b in tables) / 2**30:.3f} GiB: "
+        + ", ".join(f"{key} {b}" for key, b in tables))
+    log(f"{label}: most int32 elements handed to each kernel: {json.dumps(sizes)}")
+    if max(sizes.values()) >= 1 << 31:
+        raise AssertionError(f"{label}: a kernel was handed 2^31 int32 elements or more, a size "
+                             f"phase 3 does not hold: {sizes}")
+    summary = {"warm_s": warm["wall"], "peak_gib": warm["peaks"], "forms": warm["forms"]}
+    log(f"{label}: summary {json.dumps(summary)}")
+    log(f"{label}: phase {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 def phase_mesh_rank(mesh, device, log_rows: int) -> dict:
     """One rank of phase 13: the quadratic VDF at 2^log_rows rows, lde 16,
     under `mesh`: set-up and a cold prove (launch counts, peak), then a
@@ -1432,7 +1603,7 @@ def main() -> int:
     # phase 8 reuses phase 5's prover, then lets it go, so that no later
     # peak counts its tables
     paths[f"quadratic VDF 2^{LOG_ROWS} prove_batch B=2 (warm)"] = phase_batch(dev, main_warm)
-    main_proof = main_warm["proof"]
+    main_proof, main_peaks = main_warm["proof"], main_warm["peaks"]
     del main_warm
     phase_witness_forms(dev)
     paths["cubic VDF 2^20"] = phase_at_size(dev, "cubic VDF", F_STARK,
@@ -1465,6 +1636,11 @@ def main() -> int:
                    "warm_launches": warm["counts"], "proof_bytes": len(warm["proof"])}
         log(f"{label}: summary {json.dumps(summary)}")
         del warm
+    # phase 14: the memory-bounded forms, with no earlier prover alive
+    paths[f"quadratic VDF 2^{LOG_ROWS}, every memory-bounded form forced"] = \
+        phase_forms_forced(dev, main_proof, main_counts, main_peaks)
+    paths[f"quadratic VDF 2^{LOG_ROWS_LARGE}"] = phase_large(dev)
+    torch.cuda.empty_cache()
     paths.update(phase_mesh(dev, main_proof))
     never = [k for k in K.KERNELS if not any(c[k] for c in paths.values())]
     if never:

@@ -26,6 +26,11 @@ go through `sharded_coset_lde_rows` and the interpolant through
 `sharded_icoset_ntt` (the JAX package's hooks and conditions,
 hodor_tpu/ali/instance.py:497-518), and DEEP gives row blocks of h1 and
 h2 on the blocks of the f- and g-LDEs.
+
+DEEP keeps the points of an evaluation domain of up to XS_KEEP_MAX rows
+in `ops.tables` for the prover's life; above that it builds them for the
+call, XS_KEEP_MAX rows at a time, and runs its divisors, inverses and
+products over those row chunks (hodor_tpu's _XS_INGRAPH_MIN form).
 """
 
 from __future__ import annotations
@@ -44,7 +49,16 @@ from ..field.field import Field
 from ..field.limbs import LimbOps, fetch_together
 from ..ntt import distribute_powers, evaluate_at, icoset_ntt, lde
 from ..parallel import gather_rows, local_rows, sharded_coset_lde_rows, sharded_icoset_ntt
+from ..profiling import form_counts
 from ..transcript import Blake2sTranscript
+
+# The most rows (a rank's) of an evaluation domain whose points DEEP
+# keeps; above it DEEP keeps none and works XS_KEEP_MAX rows at a time.
+# At every LDE of a 2^20-row prove at lde 16 (f 2^24 rows, g 2^25), below
+# the f- and g-LDEs of a 2^22-row one (2^26, 2^27): set from the memory
+# profile of those proves on an H100 80GB HBM3 (tools/memory_profile.py,
+# PERF.md §6).
+XS_KEEP_MAX = 1 << 25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -417,21 +431,33 @@ class ALIInstance:
 
         # h1 = sum_m alpha_m * (f_lde[reg] - f(mz)) / (x - mz) on the
         # f-LDE domain (deep.rs:57-84); the domain points are plain
-        # Omega^i. One mask at a time, so one mask's arrays are live.
-        xs_f = self._domain_points(f_ldes.shape[-2])
+        # Omega^i. One mask at a time, so one mask's arrays are live, and
+        # one chunk of rows at a time above XS_KEEP_MAX rows.
+        n_f = f_ldes.shape[-2]
         h1_lde = None
-        for i, r in enumerate(regs):
-            inv_i = ops.batch_inverse(ops.sub(xs_f, self._lane_scalar(roots_m[..., i, :])))
-            num_i = ops.sub(f_ldes[..., r, :, :], self._lane_scalar(f_at_z_m[..., i, :]))
-            term = ops.mul(ops.mul(num_i, self._lane_scalar(alphas_m[..., i, :])), inv_i)
-            h1_lde = term if h1_lde is None else ops.add(h1_lde, term)
-            del inv_i, num_i, term
+        for rows in self._row_chunks(n_f):
+            xs_f = self._domain_points(n_f, rows)
+            part = None
+            for i, r in enumerate(regs):
+                inv_i = ops.batch_inverse(ops.sub(xs_f, self._lane_scalar(roots_m[..., i, :])))
+                num_i = ops.sub(f_ldes[..., r, rows, :], self._lane_scalar(f_at_z_m[..., i, :]))
+                term = ops.mul(ops.mul(num_i, self._lane_scalar(alphas_m[..., i, :])), inv_i)
+                part = term if part is None else ops.add(part, term)
+                del inv_i, num_i, term
+            h1_lde = self._place(h1_lde, part, f_ldes[..., 0, :, :].shape, rows)
+            del xs_f, part
 
         # h2 = (g_lde - g(z)) / (x - z) on the g-LDE domain (deep.rs:129-146)
         g_at_z = evaluate_at(ops, g_poly, z_m)  # ([B,] L)
         z_col = self._lane_scalar(z_m)
-        den = ops.batch_inverse(ops.sub(self._domain_points(g_lde.shape[-2]), z_col))
-        h2_lde = ops.mul(ops.sub(g_lde, self._lane_scalar(g_at_z)), den)
+        g_col = self._lane_scalar(g_at_z)
+        n_g = g_lde.shape[-2]
+        h2_lde = None
+        for rows in self._row_chunks(n_g):
+            den = ops.batch_inverse(ops.sub(self._domain_points(n_g, rows), z_col))
+            h2_lde = self._place(h2_lde, ops.mul(ops.sub(g_lde[..., rows, :], g_col), den),
+                                 g_lde.shape, rows)
+            del den
 
         # one fetch for every lane's f(mz) and g(z)
         f_host, g_host = map(ops.decode, fetch_together([f_at_z_m, g_at_z]))
@@ -440,15 +466,41 @@ class ALIInstance:
         return (h1_lde, h2_lde, [[int(v) for v in lane] for lane in f_host],
                 [int(v) for v in g_host])
 
-    def _domain_points(self, rows: int):
-        """w^i for this rank's `rows` rows i of the evaluation domain of
-        rows * W points (W = 1 on one device: [1, w, w^2, ...]), built once
-        per LimbOps."""
+    def _row_chunks(self, rows: int):
+        """The row slices DEEP works through on an evaluation domain of
+        `rows` rows (a rank's): all of them up to XS_KEEP_MAX, else chunks
+        of XS_KEEP_MAX rows, counted as a DEEP that keeps no table."""
+        if rows <= XS_KEEP_MAX:
+            return [slice(0, rows)]
+        form_counts["deep_tables_not_kept"] += 1
+        return [slice(r0, min(r0 + XS_KEEP_MAX, rows)) for r0 in range(0, rows, XS_KEEP_MAX)]
+
+    @staticmethod
+    def _place(whole, part, shape, rows: slice):
+        """DEEP's output from its row chunks: the part itself where it
+        covers every row, else written into `whole` (made on the first
+        chunk) at `rows`."""
+        if part.shape[-2] == shape[-2]:
+            return part
+        if whole is None:
+            whole = torch.empty(shape, dtype=torch.int32, device=part.device)
+        whole[..., rows, :] = part
+        return whole
+
+    def _domain_points(self, rows: int, part: slice):
+        """w^i for the rows i of `part` among this rank's `rows` rows of the
+        evaluation domain of rows * W points (W = 1 on one device: [1, w,
+        w^2, ...]). The points of all the rows are built once per LimbOps
+        and kept; a part of them is built for the call."""
         n = rows * self._ranks
-        first = self._rank * rows
+        first = self._rank * rows + part.start
+        count = part.stop - part.start
         key = ("domain_points", n, first)
-        if key not in self.ops.tables:
-            g = Domain.new_for_size(self.field, n).generator
-            start = self.ops.const(self.field.pow(g, first)) if first else None
-            self.ops.tables[key] = self.ops.powers(self.ops.const(g), rows, start=start)
-        return self.ops.tables[key]
+        if count == rows and key in self.ops.tables:
+            return self.ops.tables[key]
+        g = Domain.new_for_size(self.field, n).generator
+        start = self.ops.const(self.field.pow(g, first)) if first else None
+        points = self.ops.powers(self.ops.const(g), count, start=start)
+        if count == rows:
+            self.ops.tables[key] = points
+        return points

@@ -137,6 +137,13 @@ def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int, first_r
     return trees, intermediate, intt(ops, values)
 
 
+def open_entry(tree, values, idx):
+    """One entry's query rows and full Merkle paths on the device: values
+    (Q, L) and siblings (depth, Q, 8), or with lanes (B, Q, L) and
+    (depth, B, Q, 8); a dropped tree hashes `values` again."""
+    return take_rows(values, idx), tree.path_digests(idx, values)
+
+
 def gather_chain_queries(chain_data, idx_arrays):
     """Every round's query values and full Merkle paths. chain_data: list
     of (tree, committed values); idx_arrays: list of (Q,) int64 index
@@ -144,7 +151,12 @@ def gather_chain_queries(chain_data, idx_arrays):
     whose tree is a ShardedMerkleTree (values this rank's block) are
     opened together, in one all_gather. Returns per entry (values (Q, L),
     siblings (depth, Q, 8)), or (B, Q, L) and (depth, B, Q, 8) with lanes,
-    on the host, in one device-to-host copy."""
+    on the host, in one device-to-host copy.
+
+    The entries are let go as they are opened: each slot of chain_data
+    becomes None and each local tree drops its levels, so that where the
+    caller holds no other reference an entry's values and tree are freed
+    before the next entry is opened (hodor_tpu's per-oracle gathers)."""
     if not chain_data:
         return []
     sharded = [i for i, (tree, _) in enumerate(chain_data) if isinstance(tree, ShardedMerkleTree)]
@@ -154,9 +166,12 @@ def gather_chain_queries(chain_data, idx_arrays):
             [chain_data[i] + (idx_arrays[i],) for i in sharded], chain_data[sharded[0]][0].mesh)
         for i, pair in zip(sharded, opened):
             out[i] = pair
-    for i, ((tree, vals), idx) in enumerate(zip(chain_data, idx_arrays)):
+            chain_data[i] = None
+    for i, idx in enumerate(idx_arrays):
         if out[i] is None:
-            out[i] = (take_rows(vals, idx), tree.path_digests(idx))
+            out[i] = open_entry(*chain_data[i], idx)
+            chain_data[i][0].drop()
+            chain_data[i] = None
     host = fetch_together([t for pair in out for t in pair])
     return list(zip(host[0::2], host[1::2]))
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..field import kernels
+from ..profiling import form_counts
 
 KEY = b"Squeamish Ossifrage"
 PERSONAL = b"Shaftoe"
@@ -76,19 +77,43 @@ def limbs_to_leaf_words(limbs):
     """(..., N, n16) Montgomery limbs -> (..., N, 8) int32 LE leaf words: the raw
     repr bytes of the reference's leaf encoding
     (src/iop/blake2s_trivial_iop.rs:36-42), two 16-bit limbs per word,
-    zero-padded to 32 bytes. The word is formed in int64 and narrowed,
-    since hi << 16 overflows int32."""
+    zero-padded to 32 bytes. The word is formed in int32: hi << 16 wraps
+    into the sign bit, which gives the u32 word's bits (limbs are below
+    2^16)."""
     n16 = limbs.shape[-1]
     if n16 % 2:
         raise ValueError("n16 must be even")
-    lo = limbs[..., 0::2].to(torch.int64)
-    hi = limbs[..., 1::2].to(torch.int64)
-    words = kernels.u32_to_i32(lo | (hi << 16))
+    words = limbs[..., 0::2] | (limbs[..., 1::2] << 16)
     if n16 // 2 < 8:
         pad = torch.zeros(limbs.shape[:-1] + (8 - n16 // 2,), dtype=torch.int32,
                           device=limbs.device)
         words = torch.cat([words, pad], dim=-1)
     return words.contiguous()
+
+
+# Leaves of more than this many rows a lane are hashed this many rows of
+# each lane at a time into one preallocated digest tensor, so that the
+# leaf words live a chunk at a time (1 GiB at 2^25 rows; hodor_tpu's
+# _HASH_CHUNK, field/pallas_kernels.py:781-784). At every tree of a
+# 2^20-row prove at lde 16 (2^25 leaves a lane), below the f, g and h2
+# trees of a 2^22-row one (2^26, 2^27): set from the memory profile of
+# those proves on an H100 80GB HBM3 (tools/memory_profile.py, PERF.md §6).
+HASH_CHUNK = 1 << 25
+
+
+def hash_leaf_limbs(leaf_limbs):
+    """(..., N, n16) Montgomery limbs -> (..., N, 8) leaf digests: the leaf
+    words and their hashes, over chunks of HASH_CHUNK rows of the N axis
+    where N is larger."""
+    n = leaf_limbs.shape[-2]
+    if n <= HASH_CHUNK:
+        return hash_leaves(limbs_to_leaf_words(leaf_limbs))
+    form_counts["leaves_chunked"] += 1
+    out = torch.empty(leaf_limbs.shape[:-1] + (8,), dtype=torch.int32, device=leaf_limbs.device)
+    for r0 in range(0, n, HASH_CHUNK):
+        out[..., r0:r0 + HASH_CHUNK, :] = hash_leaves(
+            limbs_to_leaf_words(leaf_limbs[..., r0:r0 + HASH_CHUNK, :]))
+    return out
 
 
 def digest_to_challenge_mont(ops, digest):

@@ -6,7 +6,10 @@ levels of ntt/matmul.py (radix 128, or 4 for the fields whose wide sums
 allow no more); its canonical output equals the JAX package's
 radix-2, Pease and matmul forms alike. The LDE is the reference's
 `lde_using_multiple_cosets` (src/polynomials/mod.rs:418-482): one size-T
-NTT per coset, interleaved into natural order on the blown-up domain.
+NTT per coset, interleaved into natural order on the blown-up domain;
+above LDE_SEQUENTIAL_MIN limbs the cosets run one at a time, each NTT
+written straight into its interleaved rows, so the temporaries are of
+one coset's size.
 """
 
 from __future__ import annotations
@@ -15,7 +18,17 @@ import torch
 
 from ..domain import Domain
 from ..field.limbs import LimbOps
+from ..profiling import form_counts
 from .matmul import intt_matmul, ntt_matmul
+
+# An LDE whose batched form (..., factor, T, L) has at least this many
+# int32 limbs runs one coset at a time (hodor_tpu's _LDE_SEQUENTIAL_MIN,
+# ntt/__init__.py:292-330). Above every LDE of a 2^20-row prove (2^29 limbs
+# at lde 16, 1.5 * 2^30 for six registers at lde 8, 2^30 for a batch of
+# two), at the f- and g-LDEs of a 2^22-row one (2^31): set from the memory
+# profile of those proves on an H100 80GB HBM3 (tools/memory_profile.py,
+# PERF.md §6).
+LDE_SEQUENTIAL_MIN = 1 << 31
 
 
 def bit_reverse_indices(log_n: int, device="cuda") -> torch.Tensor:
@@ -28,11 +41,12 @@ def bit_reverse_indices(log_n: int, device="cuda") -> torch.Tensor:
     return rev
 
 
-def ntt(ops: LimbOps, a, inverse: bool = False):
+def ntt(ops: LimbOps, a, inverse: bool = False, out=None):
     """Natural-order DFT over the 2^k domain: out[k] = sum_j a[j] w^(jk)
     (w = domain generator; w^-1 when inverse, without the 1/N scale -
-    see `intt`). a: (..., N, L), N a power of two."""
-    return ntt_matmul(ops, a, inverse)
+    see `intt`). a: (..., N, L), N a power of two; out: an optional
+    (..., N, L) int32 view to write the result into (ntt_matmul)."""
+    return ntt_matmul(ops, a, inverse, out=out)
 
 
 def intt(ops: LimbOps, a):
@@ -80,8 +94,9 @@ def _coset_generators(ops: LimbOps, t: int, factor: int, coset: bool):
 def lde(ops: LimbOps, coeffs, factor: int, coset: bool = False):
     """Low-degree extension by `factor` on the blown-up 2^k domain, in
     natural order: out[idx] = f((g*)Omega^idx), idx < T*factor - one NTT
-    of size T per coset, then the interleave
-    final[j*factor + c] = coset_c[j].
+    of size T per coset, interleaved as final[j*factor + c] = coset_c[j]:
+    all cosets in one batched NTT, or one coset at a time where the
+    batched form would hold LDE_SEQUENTIAL_MIN limbs or more.
 
     coeffs: (..., T, L) -> (..., T*factor, L)."""
     if factor < 1 or factor & (factor - 1):
@@ -91,9 +106,17 @@ def lde(ops: LimbOps, coeffs, factor: int, coset: bool = False):
     t = coeffs.shape[-2]
     L = coeffs.shape[-1]
     gens = _coset_generators(ops, t, factor, coset)  # (factor, L)
-    pw = ops.powers(gens, t)  # (factor, T, L)
-    shifted = ops.mul(coeffs[..., None, :, :], pw)  # (..., factor, T, L)
-    return _interleave(ntt(ops, shifted), t, factor, L)
+    if factor * coeffs.numel() < LDE_SEQUENTIAL_MIN:
+        pw = ops.powers(gens, t)  # (factor, T, L)
+        shifted = ops.mul(coeffs[..., None, :, :], pw)  # (..., factor, T, L)
+        return _interleave(ntt(ops, shifted), t, factor, L)
+    form_counts["ldes_by_coset"] += 1
+    out = torch.empty(coeffs.shape[:-2] + (t * factor, L), dtype=torch.int32,
+                      device=coeffs.device)
+    by_coset = out.view(coeffs.shape[:-2] + (t, factor, L))
+    for c in range(factor):
+        ntt(ops, ops.mul(coeffs, ops.powers(gens[c], t)), out=by_coset[..., c, :])
+    return out
 
 
 def _interleave(evals, t: int, factor: int, L: int):

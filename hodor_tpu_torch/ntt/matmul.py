@@ -207,10 +207,12 @@ def dft_level(ops: LimbOps, x, inverse: bool, tw=None):
                              w_planes=planes)
 
 
-def ntt_matmul(ops: LimbOps, x, inverse: bool = False, scale=None):
+def ntt_matmul(ops: LimbOps, x, inverse: bool = False, scale=None, out=None):
     """Natural-order NTT over axis -2 of (..., N, n16) using radix-128
     levels. scale: optional (n16,) Montgomery constant applied in the
-    terminal level (the inverse transform's 1/N)."""
+    terminal level (the inverse transform's 1/N). out: an optional
+    (..., N, n16) int32 view (rows at any one stride) that the natural
+    order is written into, in place of a new tensor."""
     n = x.shape[-2]
     if n & (n - 1):
         raise ValueError(f"ntt_matmul needs a power-of-two length, got {n}")
@@ -218,11 +220,12 @@ def ntt_matmul(ops: LimbOps, x, inverse: bool = False, scale=None):
     lead = x.shape[:-2]
     b = int(np.prod(lead, dtype=np.int64)) if lead else 1
     radix = min(RADIX, max_radix(ops.field))
-    if n == 1:
-        return x if scale is None else ops.mul(x, scale)
     if n <= radix:
-        out = dft_level(ops, x.reshape(b, n, 1, L), inverse, tw=scale)
-        return out.reshape(x.shape)
+        if n == 1:
+            res = x if scale is None else ops.mul(x, scale)
+        else:
+            res = dft_level(ops, x.reshape(b, n, 1, L), inverse, tw=scale).reshape(x.shape)
+        return res if out is None else out.copy_(res)
     n1 = radix
     n2 = n // n1
     # j = j1*n2 + j2: DFT over j1 -> [k1, j2], times w_N^(k1*j2)
@@ -231,8 +234,11 @@ def ntt_matmul(ops: LimbOps, x, inverse: bool = False, scale=None):
     # DFT over j2 per (b, k1) -> [k1, k2]
     outer = ntt_matmul(ops, inner.reshape(b * n1, n2, L), inverse, scale=scale)
     # natural order: out[k2*n1 + k1]
-    out = outer.reshape(b, n1, n2, L).transpose(1, 2)
-    return out.reshape(lead + (n, L))
+    natural = outer.reshape(b, n1, n2, L).transpose(1, 2)
+    if out is None:
+        return natural.reshape(lead + (n, L))
+    out.view(b, n2, n1, L).copy_(natural)
+    return out
 
 
 def intt_matmul(ops: LimbOps, x):

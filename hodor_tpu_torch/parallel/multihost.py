@@ -165,7 +165,7 @@ def sharded_openings(entries, mesh):
         mine = owner == r
         local_idx = torch.where(mine, idx - block * n, torch.zeros_like(idx))
         v = take_rows(vals, local_idx) * mine[:, None]
-        s = tree.local.path_digests(local_idx) * mine[None, :, None]
+        s = tree.local.path_digests(local_idx, vals) * mine[None, :, None]
         parts += [v.reshape(-1), s.reshape(-1)]
         layout.append((v.shape, s.shape))
         where.append((block, owner))

@@ -1,9 +1,22 @@
-"""Per-stage wall times of a prove.
+"""Per-stage wall times of a prove, and the memory-bounded forms it took.
 
 `StageTimer` collects named stage wall times into a structured record.
 On a CUDA device every stage boundary synchronizes the device, so each
 stage's wall time holds its own device work and nothing of the stages
 before it.
+
+`form_counts` counts how often each memory-bounded form engaged since
+the last `reset_form_counts()`; each form is picked by size against a
+module constant of its own module:
+
+  trees_dropped         a tree that kept only its root (merkle/tree.py
+                        TREE_DROP_MIN)
+  leaves_chunked        leaves hashed in row chunks (merkle/blake2s.py
+                        HASH_CHUNK)
+  ldes_by_coset         an LDE run one coset at a time (ntt LDE_SEQUENTIAL_MIN)
+  deep_tables_not_kept  a DEEP whose domain points were built for the call,
+                        chunk by chunk, and not kept (ali/instance.py
+                        XS_KEEP_MAX)
 """
 
 from __future__ import annotations
@@ -15,6 +28,14 @@ import time
 from typing import Dict, List
 
 import torch
+
+FORMS = ("trees_dropped", "leaves_chunked", "ldes_by_coset", "deep_tables_not_kept")
+form_counts: Dict[str, int] = dict.fromkeys(FORMS, 0)
+
+
+def reset_form_counts() -> None:
+    for k in FORMS:
+        form_counts[k] = 0
 
 
 @dataclasses.dataclass

@@ -11,6 +11,15 @@ point (the protocol's sequential dependencies, src/prover/mod.rs:82-127):
   FRI:     the fold/commit ladders of h1 and h2
   queries: every oracle opening in one gather and one fetch
 
+A prove larger than its plain forms fit takes memory-bounded forms, each
+picked by size against a module constant (profiling.form_counts counts
+them): trees that keep only their root (merkle/tree.py TREE_DROP_MIN),
+leaves hashed in chunks (merkle/blake2s.py HASH_CHUNK), LDEs one coset at
+a time (ntt LDE_SEQUENTIAL_MIN) and DEEP's domain points not kept
+(ali/instance.py XS_KEEP_MAX). At every size the query stage opens its
+entries one at a time and lets each entry's values and tree go before
+the next.
+
 `prove(..., checkpoint_dir=...)` saves each of the first four stages as it
 completes and resumes from the saved ones (checkpoint.py).
 `prove_batch` proves several witnesses of one instance at once: every
@@ -173,6 +182,39 @@ class Prover:
         if self.mesh is not None:
             dist.barrier(group=self.mesh.get_group())
 
+    def _resume_fri(self, loaded, h1_lde, h2_lde):
+        """The FRI prototypes of h1 and h2 from a checkpoint's "fri" stage
+        (arrays, meta): each ladder's trees rebuilt from its saved layers
+        (dropped by size as in a prove), their roots held to the saved
+        ones."""
+        arrays, meta = loaded
+        protos = []
+        for tag, lde_vals in (("h1", h1_lde), ("h2", h2_lde)):
+            trees, inter = ladder_from_layers(
+                self.ops, lde_vals, [arrays[f"{tag}_v{i}"]
+                                     for i in range(int(meta[f"{tag}_rounds"]))], self.mesh)
+            self._check_roots(trees, [digest_to_bytes(r) for r in arrays[f"{tag}_roots"]], "fri")
+            protos.append(NaiveFriIop._assemble_prototype(
+                self.ops, trees, inter, arrays[f"{tag}_fc"], trees[0].size // self.lde_factor,
+                self.fri_final_degree_plus_one, self.lde_factor))
+        return protos
+
+    def _save_fri(self, ck: ProveCheckpoint, protos, transcript) -> None:
+        """Save the FRI stage: every ladder's later layers, roots and final
+        coefficients."""
+        arrays = {}
+        meta = {"transcript": transcript.snapshot()}
+        for tag, proto in zip(("h1", "h2"), protos):
+            meta[f"{tag}_rounds"] = len(proto.intermediate_values)
+            for i, (tree, v) in enumerate(zip(proto.intermediate_commitments,
+                                              proto.intermediate_values)):
+                arrays[f"{tag}_v{i}"] = self._to_file(
+                    v, tree.order if isinstance(tree, ShardedMerkleTree) else None)
+            arrays[f"{tag}_roots"] = np.stack(
+                [np.frombuffer(rb, dtype="<u4") for rb in proto.get_roots()])
+            arrays[f"{tag}_fc"] = to_numpy_limbs(self.ops.encode([proto.final_coefficients])[0])
+        self._save(ck, "fri", arrays, meta)
+
     def prove(self, witness: Witness, checkpoint_dir: Optional[str] = None) -> InstanceProof:
         """Full prove pipeline (src/prover/mod.rs:66-174). witness: the
         register columns as lists of canonical ints, or the native witness
@@ -280,37 +322,14 @@ class Prover:
         # the ranks' row blocks of them
         if "fri" in done:
             with timer.stage("fri_h1+h2(resumed)"):
-                arrays, meta = load("fri")
-                protos = []
-                for tag, lde_vals in (("h1", h1_lde), ("h2", h2_lde)):
-                    trees, inter = ladder_from_layers(
-                        ops, lde_vals, [arrays[f"{tag}_v{i}"]
-                                        for i in range(int(meta[f"{tag}_rounds"]))], self.mesh)
-                    self._check_roots(trees, [digest_to_bytes(r) for r in arrays[f"{tag}_roots"]],
-                                      "fri")
-                    protos.append(NaiveFriIop._assemble_prototype(
-                        ops, trees, inter, arrays[f"{tag}_fc"],
-                        trees[0].size // self.lde_factor, self.fri_final_degree_plus_one,
-                        self.lde_factor))
-                h1_proto, h2_proto = protos
+                h1_proto, h2_proto = self._resume_fri(load("fri"), h1_lde, h2_lde)
         else:
             with self._stage(timer, "fri_h1+h2"):
                 h1_proto, h2_proto = NaiveFriIop.proofs_from_ldes(
                     ops, [h1_lde, h2_lde], self.lde_factor, self.fri_final_degree_plus_one,
                     self.mesh)
             if ck is not None:
-                arrays = {}
-                meta = {"transcript": transcript.snapshot()}
-                for tag, proto in (("h1", h1_proto), ("h2", h2_proto)):
-                    meta[f"{tag}_rounds"] = len(proto.intermediate_values)
-                    for i, (tree, v) in enumerate(zip(proto.intermediate_commitments,
-                                                      proto.intermediate_values)):
-                        arrays[f"{tag}_v{i}"] = self._to_file(
-                            v, tree.order if isinstance(tree, ShardedMerkleTree) else None)
-                    arrays[f"{tag}_roots"] = np.stack(
-                        [np.frombuffer(rb, dtype="<u4") for rb in proto.get_roots()])
-                    arrays[f"{tag}_fc"] = to_numpy_limbs(ops.encode([proto.final_coefficients])[0])
-                self._save(ck, "fri", arrays, meta)
+                self._save_fri(ck, (h1_proto, h2_proto), transcript)
 
         # 7. commit final roots + coefficients (src/prover/mod.rs:118-127)
         for proto in (h1_proto, h2_proto):
@@ -335,8 +354,14 @@ class Prover:
             chain_data = (h1_plan[2] + h2_plan[2] + [(o, f_ldes[r]) for r, o in enumerate(f_oracles)]
                           + [(g_oracle, g_lde_vals)])
             idx_arrays = h1_plan[3] + h2_plan[3] + [x1] * len(f_oracles) + [x2]
-            gathered = gather_chain_queries(chain_data, idx_arrays)
             n1, n2 = len(h1_plan[2]), len(h2_plan[2])
+            # chain_data holds the only references left, so that each
+            # entry's values go once it is opened
+            del h1_lde, h2_lde, f_ldes, g_lde_vals, f_oracles, g_oracle
+            h1_plan[2].clear()
+            h2_plan[2].clear()
+            h1_proto.intermediate_values = h2_proto.intermediate_values = []
+            gathered = gather_chain_queries(chain_data, idx_arrays)
             fri_proof_h1 = NaiveFriIop.proof_from_gathered(
                 h1_proto, h1_plan[0], h1_plan[1], gathered[:n1], ops
             )
