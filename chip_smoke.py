@@ -24,11 +24,25 @@ Phases, each reported on its own line:
      F_P63's widths (16 and 4 limbs with a nearly full top word), the NTT
      levels at the radix-4 and radix-2 shapes of their transforms on the
      butterfly body with the limb body beside it, at every x = p - 1 too;
-     kernel and plain times from CUDA events after a warm-up, beside the
-     least time the card could take (bytes over 3.35 TB/s or operations
-     over the peak of their type, whichever is larger) and, where one
-     PyTorch call computes the same function, that call's time. Then the
-     three forms of the NTT level on one x and twiddle table, bit-equal;
+     addsub in each of its three bodies (flat, grid, general) at every
+     width, p - 1 against p - 1, 0 and 1 and ragged sizes among them,
+     and fri_fold with a ragged half, interleaved halves and lanes at
+     every width; for every case three times: `ms`, CUDA events around
+     calls issued back to back after a warm-up (the host's time where it
+     exceeds the card's); `device_ms`, the card's time of one call, from
+     the calls captured in a CUDA graph and replayed between CUDA
+     events, cycling over copies of their operands (`device_copies`) so
+     that none reads them from L2
+     (`device_by` "graph"; "profiler" where a call cannot be captured:
+     the sum of its device intervals under torch.profiler); `host_us`,
+     the host clock over calls that nothing synchronises, the median of
+     five batches (both from hodor_tpu_torch/tools/launch_cost.py);
+     beside the plain version's
+     time, the least time the card could take (bytes over 3.35 TB/s or
+     operations over the peak of their type, whichever is larger) and,
+     where one PyTorch call computes the same function, that call's time.
+     Then the three forms of the NTT level on one x and twiddle table,
+     bit-equal;
   4. goldens: the port proves fib_f257, vdf_fstark_t32 and
      cubic_vdf_fstark_t32 on the card, and vdf_fstark_t32 again under
      the "two_step" and "fused" level forms; proof bytes and challenge
@@ -246,6 +260,7 @@ def phase_kernels(dev):
     from hodor_tpu_torch.field import kernels as K
     from hodor_tpu_torch.merkle.blake2s import keyed_midstate
     from hodor_tpu_torch.ntt import matmul as M
+    from hodor_tpu_torch.tools.launch_cost import device_time_ms, host_time_us
 
     field = F_STARK
     ops = LimbOps(field, dev)
@@ -274,6 +289,8 @@ def phase_kernels(dev):
         moved += nbytes(got)
         del got, want
         ms = cuda_time_ms(kernel_fn, reps)
+        device_ms, device_by, copies = device_time_ms(kernel_fn, reps)
+        host_us = host_time_us(kernel_fn, max(reps, 50))
         other_ms = {label: cuda_time_ms(fn, reps) for label, fn in other_bodies.items()}
         plain_ms = cuda_time_ms(plain_fn, plain_reps)
         library_ms = None if library_fn is None else cuda_time_ms(library_fn, reps)
@@ -282,10 +299,14 @@ def phase_kernels(dev):
         rec = records[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["cases"].append({
-            "case": case, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
+            "case": case, "ms": ms, "device_ms": device_ms, "device_by": device_by,
+            "device_copies": copies, "host_us": host_us, "plain_ms": plain_ms,
+            "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": library_ms, **{f"{label}_body_ms": t for label, t in other_ms.items()}})
-        log(f"kernel {name:11s} {case:36s} bit-equal  kernel {ms:9.3f} ms  plain {plain_ms:10.3f} ms"
+        log(f"kernel {name:11s} {case:36s} bit-equal  kernel {ms:9.3f} ms  device"
+            f" {device_ms:9.4f} ms ({device_by}, {copies} copies)  host {host_us:8.1f} us"
+            f"  plain {plain_ms:10.3f} ms"
             f"  bound {max(by_bytes, by_ops):7.3f} ms ({rec['cases'][-1]['bound_by']})"
             + "".join(f"  {label} body {t:7.3f} ms" for label, t in other_ms.items())
             + ("" if library_ms is None else f"  library {library_ms:7.3f} ms"))
@@ -338,6 +359,7 @@ def phase_kernels(dev):
     compare("addsub", "sub 2^20 x scalar (stride 0)",
             lambda: K.addsub(field, a, s, "sub"), lambda: K.addsub_plain(field, a, s, "sub"),
             nbytes(a, s), n * ops_addsub(16))
+    addsub_body_cases(dev, field, compare, a, b)
     del a, b
     # the LDE's coset shift at the f-LDE's width: coefficients (R, 1, T)
     # read with stride 0 over the factor axis, against powers (factor, T)
@@ -543,6 +565,49 @@ def phase_kernels(dev):
     return records
 
 
+def addsub_body_cases(dev, field, compare, a, b) -> None:
+    """addsub in each of its bodies at a field's width against the plain
+    version, both modes: flat (p - 1 against p - 1, against 0 and 1 (the
+    add wraps) and 0 and 1 against p - 1 (the subtraction borrows); 1, 3
+    and 2^20 - 3 elements), grid (a (16, 2^16) period with a (2^16,) row,
+    stride 0 over the 16) and general (a transposed view). a, b: (2^20, n16). Each case
+    names the body it takes and fails if that body did not launch."""
+    import torch
+
+    from hodor_tpu_torch.field import kernels as K
+
+    n16, n = field.n16, a.shape[0]
+    tag = "" if field.name == "F_STARK" else f"{field.name} "
+    worst, worst2 = worst_case(field, (n,), dev), worst_case(field, (n,), dev)
+    zero_one = torch.zeros(n, n16, dtype=torch.int32, device=dev)
+    zero_one[1::2, 0] = 1
+    cases = (
+        ("2^20, p-1 and p-1", worst, worst2),
+        ("2^20, p-1 and 0/1", worst, zero_one),
+        ("2^20, 0/1 and p-1", zero_one, worst),
+        ("1 element, 0 and p-1", zero_one[:1], worst[1:2]),
+        ("3 elements", a[:3], b[5:8]),
+        ("2^20 - 3, views offset by 3", a[3:], b[:-3]),
+        ("period (16,2^16) + (2^16,)", a.reshape(16, n // 16, n16), b[:n // 16]),
+        ("(2^16,16) transposed view", a.reshape(16, n // 16, n16).transpose(0, 1),
+         b.reshape(n // 16, 16, n16)),
+    )
+    for label, x, y in cases:
+        body = K.addsub_body(x, y)
+        count = max(x[..., 0].numel(), y[..., 0].numel())
+        for mode in ("add", "sub"):
+            before = K.addsub_body_counts[body]
+            compare("addsub", f"{tag}{mode} {label} [{body}]",
+                    lambda: K.addsub(field, x, y, mode),
+                    lambda: K.addsub_plain(field, x, y, mode),
+                    nbytes(x, y), count * ops_addsub(n16), plain_reps=1)
+            if K.addsub_body_counts[body] == before:
+                raise AssertionError(f"addsub {tag}{label}: the {body} body did not launch")
+    for body in K.ADDSUB_BODIES:
+        if not any(K.addsub_body(x, y) == body for _, x, y in cases):
+            raise AssertionError(f"addsub at {field.name}: no case takes the {body} body")
+
+
 def worst_case(field, shape, device):
     """Every element p - 1: the largest canonical value, in every limb."""
     import torch
@@ -600,6 +665,7 @@ def kernel_cases_off_f_stark(dev, field, gen, compare, log_n: int = 20):
         compare("addsub", f"{tag} {mode} 2^{log_n}",
                 lambda: K.addsub(field, a, b, mode), lambda: K.addsub_plain(field, a, b, mode),
                 nbytes(a, b), n * ops_addsub(n16))
+    addsub_body_cases(dev, field, compare, a, b)
     c_scaled = ops.mul(random_canonical(field, (), gen, dev), ops.two_inv_m)
     wv = random_canonical(field, (n // 2,), gen, dev)
     lo, hi = a[:n // 2], a[n // 2:]
@@ -608,7 +674,37 @@ def kernel_cases_off_f_stark(dev, field, gen, compare, log_n: int = 20):
             lambda: K.fri_fold_plain(field, lo, hi, wv, c_scaled, ops.two_inv_m),
             nbytes(a, wv, c_scaled, ops.two_inv_m), n // 2 * ops_fri_fold(n16), reps=5,
             plain_reps=1)
-    del a, b, wv, lo, hi
+    # a ragged half (no multiple of a block) with every input p - 1, the
+    # interleaved halves, and lanes
+    worst = worst_case(field, (n,), dev)
+    h = n // 2 - 3
+    compare("fri_fold", f"{tag} half=2^{log_n - 1}-3, all p-1",
+            lambda: K.fri_fold(field, worst[:h], worst[h:2 * h], worst[:h], worst[0], worst[1]),
+            lambda: K.fri_fold_plain(field, worst[:h], worst[h:2 * h], worst[:h], worst[0],
+                                     worst[1]),
+            nbytes(worst[:3 * h], worst[0], worst[1]), h * ops_fri_fold(n16), reps=5,
+            plain_reps=1)
+    compare("fri_fold", f"{tag} half=2^{log_n - 1}, interleaved halves",
+            lambda: K.fri_fold(field, a[0::2], a[1::2], wv, c_scaled, ops.two_inv_m),
+            lambda: K.fri_fold_plain(field, a[0::2], a[1::2], wv, c_scaled, ops.two_inv_m),
+            nbytes(a, wv, c_scaled, ops.two_inv_m), n // 2 * ops_fri_fold(n16), reps=5,
+            plain_reps=1)
+    del worst
+    for lanes, half in ((3, 1001), (2, n // 4)):
+        values = random_canonical(field, (lanes, 2 * half), gen, dev)
+        wl = wv[:half]
+        cs = ops.mul(random_canonical(field, (lanes,), gen, dev), ops.two_inv_m)
+        lo, hi = values[:, :half], values[:, half:]
+        before = K.launch_counts["fri_fold"]
+        K.fri_fold(field, lo, hi, wl, cs, ops.two_inv_m)
+        if K.launch_counts["fri_fold"] != before + 1:
+            raise AssertionError(f"{tag}: the fold of all lanes must be one launch")
+        compare("fri_fold", f"{tag} B={lanes} half={half} (batch)",
+                lambda: K.fri_fold(field, lo, hi, wl, cs, ops.two_inv_m),
+                lambda: K.fri_fold_plain(field, lo, hi, wl, cs, ops.two_inv_m),
+                nbytes(values, wl, cs, ops.two_inv_m), lanes * half * ops_fri_fold(n16),
+                reps=5, plain_reps=1)
+    del a, b, wv, lo, hi, values
 
     ninv = ops.const(field.inv(n))
     quarter, half = n // 4, n // 2
@@ -721,7 +817,8 @@ def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_fac
     stage ends (tools/memory_profile.stage_peaks), and the proves' peaks
     taken from them. Returns the launch counts of the set-up + cold prove
     + verify, their ntt_level bodies, and the warm prove: {"counts",
-    "ntt_bodies", "mont_mul_bodies" (its launches), "proof" (its bytes,
+    "ntt_bodies", "mont_mul_bodies" (its launches), "addsub_bodies" (those
+    of the set-up + cold prove + verify), "proof" (its bytes,
     serialized before the tamper), "wall", "peaks" (cold, warm, GiB),
     "forms" (cold, warm form counts), "stages" (cold, warm stage records,
     with per_stage), "prover", "witness", "props"}."""
@@ -789,10 +886,16 @@ def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_fac
     verify_s = time.perf_counter() - t0
     counts = dict(K.launch_counts)
     bodies = dict(K.ntt_level_body_counts)
+    addsub_bodies = dict(K.addsub_body_counts)
     log(f"{label}: cold prove {cold:.3f} s (stage walls: {prover.last_timings.to_json()})")
     log(f"{label}: verify {verify_s:.3f} s -> accepted")
     log(f"{label}: launches in set-up + cold prove + verify: {json.dumps(counts)}")
     log(f"{label}: ntt_level launches by body: {json.dumps(bodies)}")
+    log(f"{label}: addsub launches by body: {json.dumps(addsub_bodies)}, mont_mul by body: "
+        f"{json.dumps(K.mont_mul_body_counts)}")
+    if sum(addsub_bodies.values()) != counts["addsub"]:
+        raise AssertionError(f"{label}: addsub launches by body {addsub_bodies} do not sum to "
+                             f"{counts['addsub']}")
     if bodies[ntt_bodies[0]] == 0 or sum(bodies[b] for b in ntt_bodies) != counts["ntt_level"]:
         raise AssertionError(f"{label}: the path must run the {ntt_bodies[0]!r} body of ntt_level "
                              f"and no body but {ntt_bodies}, got {bodies} of "
@@ -803,7 +906,7 @@ def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_fac
     proof, warm, peak_warm, reserved_warm, stages_warm = prove_once()
     forms_warm = check_forms("warm")
     warm_run = {"counts": dict(K.launch_counts), "ntt_bodies": dict(K.ntt_level_body_counts),
-                "mont_mul_bodies": dict(K.mont_mul_body_counts),
+                "mont_mul_bodies": dict(K.mont_mul_body_counts), "addsub_bodies": addsub_bodies,
                 "proof": serialize_proof(proof, field), "wall": warm,
                 "peaks": (peak_cold / 2**30, peak_warm / 2**30),
                 "forms": (forms_cold, forms_warm), "stages": (stages_cold, stages_warm),
@@ -1604,6 +1707,7 @@ def main() -> int:
     # peak counts its tables
     paths[f"quadratic VDF 2^{LOG_ROWS} prove_batch B=2 (warm)"] = phase_batch(dev, main_warm)
     main_proof, main_peaks = main_warm["proof"], main_warm["peaks"]
+    main_addsub_bodies = main_warm["addsub_bodies"]
     del main_warm
     phase_witness_forms(dev)
     paths["cubic VDF 2^20"] = phase_at_size(dev, "cubic VDF", F_STARK,
@@ -1658,7 +1762,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": paths[path][name], "launches_on": path,
             "max_abs_err": rec["max_abs_err"],
-            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "ms": first["ms"], "device_ms": first["device_ms"], "device_by": first["device_by"],
+            "host_us": first["host_us"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             "cases": rec["cases"],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
@@ -1674,6 +1780,8 @@ def main() -> int:
             kernels[-1]["entries"] = ["hodor_dft_reduce_mma", "hodor_dft_reduce", "hodor_s8dot"]
         if name == "mont_mul":
             kernels[-1]["entries"] = ["hodor_mont_mul", "hodor_mont_pow"]
+        if name == "addsub":
+            kernels[-1]["launches_by_body"] = main_addsub_bodies
     log(f"device: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

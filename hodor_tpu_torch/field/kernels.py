@@ -28,8 +28,12 @@ on canonical values in registers ("butterfly") for S = 2, 4, 8, and the
 limb arithmetic on the integer pipe ("limb") for the rest; the wrapper picks
 one from the field and the radix (`ntt_level_body`), and
 `ntt_level_body_counts` counts each beside their sum in `launch_counts`.
-`mont_mul` has three bodies picked from the collapsed layout ("flat",
-"grid", "general"; `mont_mul_body`), counted in `mont_mul_body_counts`.
+`mont_mul` and `addsub` have three bodies each, picked from the collapsed
+layout by one rule ("flat", "grid", "general"; `mont_mul_body`,
+`addsub_body`), counted in `mont_mul_body_counts` and
+`addsub_body_counts`. The three elementwise wrappers (`mont_mul`,
+`addsub`, `fri_fold`) keep the launch arguments of every operand layout
+they have seen, so a repeated layout costs no broadcast or collapse.
 `fri_fold` takes an optional leading lane axis, one proof of a batch a
 lane with its own challenge, all lanes in one launch.
 
@@ -54,7 +58,7 @@ import shutil
 import subprocess
 import tempfile
 from functools import lru_cache
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +80,8 @@ DFT_REDUCE_BODIES = ("mma", "dp4a")
 dft_reduce_body_counts = {body: 0 for body in DFT_REDUCE_BODIES}
 MONT_MUL_BODIES = ("flat", "grid", "general")
 mont_mul_body_counts = {body: 0 for body in MONT_MUL_BODIES}
+ADDSUB_BODIES = MONT_MUL_BODIES
+addsub_body_counts = {body: 0 for body in ADDSUB_BODIES}
 
 
 def reset_launch_counts() -> None:
@@ -87,6 +93,8 @@ def reset_launch_counts() -> None:
         dft_reduce_body_counts[body] = 0
     for body in MONT_MUL_BODIES:
         mont_mul_body_counts[body] = 0
+    for body in ADDSUB_BODIES:
+        addsub_body_counts[body] = 0
 
 
 # ------------------------------------------------------------------ build
@@ -165,8 +173,7 @@ def _bind(lib):
     lib.hodor_ntt_level_mma.argtypes = lib.hodor_ntt_level.argtypes
     lib.hodor_ntt_level_butterfly.argtypes = [i32, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32,
                                               vp]
-    lib.hodor_fri_fold.argtypes = [i32, vp, i64, vp, i64, i64, vp, i64, i64, vp, i64, vp, i64, vp,
-                                   i64, i64, vp, u32, vp]
+    lib.hodor_fri_fold.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, u32, vp]
     lib.hodor_wide_reduce.argtypes = [i32, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
     lib.hodor_dft_reduce.argtypes = [i32, vp, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp,
                                      i32, vp]
@@ -192,8 +199,11 @@ def _check(code: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {code}")
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream() -> int:
+    """The current device's current stream as an integer, the value of
+    torch.cuda.current_stream().cuda_stream (every entry binds it as
+    void *), read without making a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def _i64_array(values):
@@ -340,14 +350,14 @@ def addsub_plain(field: Field, a, b, mode: str):
 # ------------------------------------------------ elementwise dispatch
 
 def _check_limbs(field: Field, *tensors) -> None:
-    dev = tensors[0].device
+    dev, n16 = tensors[0].device, field.n16
     for t in tensors:
-        if t.dtype != torch.int32:
+        if t.dtype is not torch.int32:
             raise TypeError(f"limb tensors must be int32, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"operands on different devices: {t.device} vs {dev}")
-        if t.dim() < 1 or t.shape[-1] != field.n16:
-            raise ValueError(f"last dim must be n16={field.n16}, got shape {tuple(t.shape)}")
+        if t.dim() < 1 or t.shape[-1] != n16:
+            raise ValueError(f"last dim must be n16={n16}, got shape {tuple(t.shape)}")
 
 
 def _collapse(shape, strides_per_operand):
@@ -407,22 +417,20 @@ def _launch_geometry(a, b, out_shape):
 
 def _out_tensor(out, shape, like):
     if out is None:
+        if like.shape == shape and like.dtype is torch.int32:
+            # less host time than torch.empty: no device argument to parse
+            return torch.empty_like(like, memory_format=torch.contiguous_format)
         return torch.empty(shape, dtype=torch.int32, device=like.device)
     if tuple(out.shape) != tuple(shape) or not out.is_contiguous() or out.dtype != torch.int32:
         raise ValueError("out must be a contiguous int32 tensor of the broadcast shape")
     return out
 
 
-def mont_mul_body(a, b) -> str:
-    """The body of mont_mul.cu that a product of a and b launches, from
-    the collapsed layout as its launcher picks it: "flat" (one element
-    dim), "grid" (outer two dims on the grid, inner at least a warp wide)
-    or "general" (element_at division)."""
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    return _mont_mul_body(_launch_geometry(a, b, shape)[2])
-
-
-def _mont_mul_body(dims) -> str:
+def _elementwise_body(dims) -> str:
+    """The body of mont_mul.cu and addsub.cu that collapsed dims take, as
+    both launchers pick it: "flat" (one element dim), "grid" (outer two
+    dims on the grid, inner at least a warp wide) or "general"
+    (element_at division)."""
     if dims[0] == 1 and dims[1] == 1:
         return "flat"
     if dims[0] <= 65535 and dims[1] <= 65535 and dims[2] >= 32:
@@ -430,31 +438,101 @@ def _mont_mul_body(dims) -> str:
     return "general"
 
 
+def mont_mul_body(a, b) -> str:
+    """The body of mont_mul.cu that a product of a and b launches."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    return _elementwise_body(_launch_geometry(a, b, shape)[2])
+
+
+def addsub_body(a, b) -> str:
+    """The body of addsub.cu that a sum or difference of a and b launches
+    (the rule of `mont_mul_body`)."""
+    return mont_mul_body(a, b)
+
+
+class _ElementwiseLaunch(NamedTuple):
+    """What an elementwise launch passes for one pair of operand layouts:
+    the output's shape, whether the operands are first copied to a
+    contiguous broadcast (a layout that collapses to no three dims), the
+    strides and dims as ctypes arrays (None for an empty output) and the
+    body the launcher picks."""
+    shape: torch.Size
+    copy: bool
+    a_strides: Optional[ctypes.Array]
+    b_strides: Optional[ctypes.Array]
+    dims: Optional[ctypes.Array]
+    body: Optional[str]
+
+
+# Launch arguments by operand layout. A layout's first call checks its
+# operands and works the arguments out (_check_limbs,
+# torch.broadcast_shapes and _launch_geometry, most of a call's host time
+# before this cache: PERF.md); later calls read them here. The key holds
+# every operand's shape, strides, dtype and device and the field's width,
+# so a layout found here passed the checks when it was entered. A cache
+# that reaches _LAUNCH_CACHE_MAX layouts starts again empty. The base
+# pointers' alignment is checked on every call.
+_LAUNCH_CACHE_MAX = 4096
+_elementwise_launches = {}
+_fold_launches = {}
+
+
+def _remember(cache, key, value):
+    if len(cache) >= _LAUNCH_CACHE_MAX:
+        cache.clear()
+    cache[key] = value
+    return value
+
+
+def _elementwise_launch(field: Field, a, b):
+    """(launch arguments, a, b) of an elementwise kernel over limbs a and
+    b, from the cache of layouts; a and b come back copied where the
+    layout asks for it. Raises as `_check_limbs` and `_launch_geometry`
+    do."""
+    key = (field.n16, a.shape, a.stride(), a.dtype, a.device, b.shape, b.stride(), b.dtype,
+           b.device)
+    launch = _elementwise_launches.get(key)
+    if launch is None:
+        _check_limbs(field, a, b)
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        if 0 in shape:
+            return _ElementwiseLaunch(shape, False, None, None, None, None), a, b
+        a2, b2, dims, a_st, b_st = _launch_geometry(a, b, shape)
+        launch = _remember(_elementwise_launches, key, _ElementwiseLaunch(
+            shape, a2 is not a, _i64_array(a_st), _i64_array(b_st), _i64_array(dims),
+            _elementwise_body(dims)))
+        return launch, a2, b2
+    if launch.copy:
+        a, b = (t.expand(launch.shape).contiguous() for t in (a, b))
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("limb elements must lie at 16-byte aligned addresses")
+    return launch, a, b
+
+
 def mont_mul(field: Field, a, b, out=None):
     """Elementwise Montgomery product a*b*R^-1 mod p of (..., n16) limbs
     (broadcasting). CPU: plain version. CUDA: the mont_mul kernel."""
+    if a.is_cuda:
+        launch, a, b = _elementwise_launch(field, a, b)
+        out = _out_tensor(out, launch.shape, a)
+        if out.numel() == 0:
+            return out
+        p_words, pinv0, _ = _field_args(field)
+        code = _kernels().hodor_mont_mul(
+            field.n16, out.data_ptr(), a.data_ptr(), launch.a_strides, b.data_ptr(),
+            launch.b_strides, launch.dims, p_words, pinv0, _stream(),
+        )
+        _check(code, "mont_mul")
+        launch_counts["mont_mul"] += 1
+        mont_mul_body_counts[launch.body] += 1
+        return out
     _check_limbs(field, a, b)
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    if a.device.type == "cpu":
-        res = mont_mul_plain(field, a, b)
-        if out is None:
-            return res
-        out.copy_(res)
-        return out
-    if a.device.type != "cuda":
+    if not a.is_cpu:
         raise ValueError(f"unsupported device {a.device}")
-    out = _out_tensor(out, shape, a)
-    if out.numel() == 0:
-        return out
-    a, b, dims, a_st, b_st = _launch_geometry(a, b, shape)
-    p_words, pinv0, _ = _field_args(field)
-    code = _kernels().hodor_mont_mul(
-        field.n16, out.data_ptr(), a.data_ptr(), _i64_array(a_st), b.data_ptr(),
-        _i64_array(b_st), _i64_array(dims), p_words, pinv0, _stream(),
-    )
-    _check(code, "mont_mul")
-    launch_counts["mont_mul"] += 1
-    mont_mul_body_counts[_mont_mul_body(dims)] += 1
+    res = mont_mul_plain(field, a, b)
+    if out is None:
+        return res
+    out.copy_(res)
     return out
 
 
@@ -506,26 +584,27 @@ def addsub(field: Field, a, b, mode: str, out=None):
     (broadcasting). CPU: plain version. CUDA: the addsub kernel."""
     if mode not in ("add", "sub"):
         raise ValueError(f"mode must be 'add' or 'sub', not {mode!r}")
+    if a.is_cuda:
+        launch, a, b = _elementwise_launch(field, a, b)
+        out = _out_tensor(out, launch.shape, a)
+        if out.numel() == 0:
+            return out
+        code = _kernels().hodor_addsub(
+            field.n16, 0 if mode == "add" else 1, out.data_ptr(), a.data_ptr(),
+            launch.a_strides, b.data_ptr(), launch.b_strides, launch.dims,
+            _field_args(field)[0], _stream(),
+        )
+        _check(code, "addsub")
+        launch_counts["addsub"] += 1
+        addsub_body_counts[launch.body] += 1
+        return out
     _check_limbs(field, a, b)
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    if a.device.type == "cpu":
-        res = addsub_plain(field, a, b, mode)
-        if out is None:
-            return res
-        out.copy_(res)
-        return out
-    if a.device.type != "cuda":
+    if not a.is_cpu:
         raise ValueError(f"unsupported device {a.device}")
-    out = _out_tensor(out, shape, a)
-    if out.numel() == 0:
-        return out
-    a, b, dims, a_st, b_st = _launch_geometry(a, b, shape)
-    code = _kernels().hodor_addsub(
-        field.n16, 0 if mode == "add" else 1, out.data_ptr(), a.data_ptr(), _i64_array(a_st),
-        b.data_ptr(), _i64_array(b_st), _i64_array(dims), _field_args(field)[0], _stream(),
-    )
-    _check(code, "addsub")
-    launch_counts["addsub"] += 1
+    res = addsub_plain(field, a, b, mode)
+    if out is None:
+        return res
+    out.copy_(res)
     return out
 
 
@@ -888,8 +967,8 @@ def fri_fold_plain(field: Field, lo, hi, w, c_scaled, inv2):
 
 def _row_stride(t, name: str) -> int:
     """Row stride (int32 units) of a (..., rows, n16) operand the kernels
-    read through 16-byte loads."""
-    if t.stride(-1) != 1 or t.stride(-2) % 4 or t.data_ptr() % 16:
+    read through 16-byte loads (the layout; the base is checked per call)."""
+    if t.stride(-1) != 1 or t.stride(-2) % 4:
         raise ValueError(f"{name}: rows must be unit-stride limbs at 16-byte aligned addresses")
     return t.stride(-2)
 
@@ -903,6 +982,30 @@ def _lane_stride(t, lanes, name: str) -> int:
     return t.stride(0)
 
 
+def _check_fold_shapes(field: Field, lo, hi, w, c_scaled, inv2):
+    if lo.dim() not in (2, 3) or lo.shape != hi.shape or lo.shape[-2:] != w.shape:
+        raise ValueError(f"lo, hi must share one (half, n16) or (B, half, n16) shape and w be "
+                         f"(half, n16), got {tuple(lo.shape)}, {tuple(hi.shape)}, "
+                         f"{tuple(w.shape)}")
+    c_shape = (field.n16,) if lo.dim() == 2 else (lo.shape[0], field.n16)
+    if tuple(c_scaled.shape) != c_shape or c_scaled.stride(-1) != 1:
+        raise ValueError(f"c_scaled must be unit-stride {c_shape} limbs, got "
+                         f"{tuple(c_scaled.shape)}")
+    if inv2.dim() != 1 or inv2.stride(0) != 1:
+        raise ValueError("inv2 must be a contiguous (n16,) scalar")
+
+
+def _fold_strides(field: Field, lo, hi, w, c_scaled):
+    """The geometry hodor_fri_fold reads, in int32 units: (out lane
+    stride, lo row and lane strides, hi row and lane strides, w row
+    stride, c_scaled lane stride, half, lanes)."""
+    lanes = lo.shape[0] if lo.dim() == 3 else None
+    half = lo.shape[-2]
+    return (half * field.n16, _row_stride(lo, "lo"), _lane_stride(lo, lanes, "lo"),
+            _row_stride(hi, "hi"), _lane_stride(hi, lanes, "hi"), _row_stride(w, "w"),
+            _lane_stride(c_scaled, lanes, "c_scaled"), half, 1 if lanes is None else lanes)
+
+
 def fri_fold(field: Field, lo, hi, w, c_scaled, inv2, out=None):
     """One FRI fold round, fused: mont(mont(lo - hi, w), c_scaled) +
     mont(lo + hi, inv2), for one proof or for a batch of them in one
@@ -911,43 +1014,45 @@ def fri_fold(field: Field, lo, hi, w, c_scaled, inv2, out=None):
     values are read in place). w: (half, n16), shared by all lanes.
     c_scaled (the round's challenge times 1/2): (n16,), or (B, n16) with a
     lane axis; inv2 (1/2): (n16,). Montgomery limbs on one device. CPU:
-    plain version. CUDA: the fri_fold kernel."""
+    plain version. CUDA: the fri_fold kernel, its layout checked and its
+    geometry worked out on a layout's first call only (as
+    `_elementwise_launch`)."""
+    if lo.is_cuda:
+        key = (field.n16, lo.shape, lo.stride(), lo.dtype, lo.device, hi.shape, hi.stride(),
+               hi.dtype, hi.device, w.shape, w.stride(), w.dtype, w.device, c_scaled.shape,
+               c_scaled.stride(), c_scaled.dtype, c_scaled.device, inv2.shape, inv2.stride(),
+               inv2.dtype, inv2.device)
+        geometry = _fold_launches.get(key)
+        if geometry is None:
+            _check_limbs(field, lo, hi, w, c_scaled, inv2)
+            _check_fold_shapes(field, lo, hi, w, c_scaled, inv2)
+        out = _out_tensor(out, lo.shape, lo)
+        if out.numel() == 0:
+            return out
+        if geometry is None:
+            geometry = _remember(_fold_launches, key,
+                                 _i64_array(_fold_strides(field, lo, hi, w, c_scaled)))
+        if lo.data_ptr() % 16 or hi.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError("lo, hi, w: rows must be unit-stride limbs at 16-byte aligned "
+                             "addresses")
+        if c_scaled.data_ptr() % 16 or inv2.data_ptr() % 16:
+            raise ValueError("c_scaled and inv2 must lie at 16-byte aligned addresses")
+        p_words, pinv0, _ = _field_args(field)
+        code = _kernels().hodor_fri_fold(
+            field.n16, out.data_ptr(), lo.data_ptr(), hi.data_ptr(), w.data_ptr(),
+            c_scaled.data_ptr(), inv2.data_ptr(), geometry, p_words, pinv0, _stream(),
+        )
+        _check(code, "fri_fold")
+        launch_counts["fri_fold"] += 1
+        return out
     _check_limbs(field, lo, hi, w, c_scaled, inv2)
-    lanes = lo.shape[0] if lo.dim() == 3 else None
-    if lo.dim() not in (2, 3) or lo.shape != hi.shape or lo.shape[-2:] != w.shape:
-        raise ValueError(f"lo, hi must share one (half, n16) or (B, half, n16) shape and w be "
-                         f"(half, n16), got {tuple(lo.shape)}, {tuple(hi.shape)}, "
-                         f"{tuple(w.shape)}")
-    c_shape = (field.n16,) if lanes is None else (lanes, field.n16)
-    if tuple(c_scaled.shape) != c_shape or c_scaled.stride(-1) != 1:
-        raise ValueError(f"c_scaled must be unit-stride {c_shape} limbs, got "
-                         f"{tuple(c_scaled.shape)}")
-    if inv2.dim() != 1 or inv2.stride(0) != 1:
-        raise ValueError("inv2 must be a contiguous (n16,) scalar")
-    if lo.device.type == "cpu":
-        res = fri_fold_plain(field, lo, hi, w, c_scaled, inv2)
-        if out is None:
-            return res
-        out.copy_(res)
-        return out
-    if lo.device.type != "cuda":
+    _check_fold_shapes(field, lo, hi, w, c_scaled, inv2)
+    if not lo.is_cpu:
         raise ValueError(f"unsupported device {lo.device}")
-    out = _out_tensor(out, lo.shape, lo)
-    half = lo.shape[-2]
-    if half == 0 or out.numel() == 0:
-        return out
-    n = field.n16
-    if c_scaled.data_ptr() % 16:
-        raise ValueError("c_scaled must lie at a 16-byte aligned address")
-    code = _kernels().hodor_fri_fold(
-        n, out.data_ptr(), half * n, lo.data_ptr(), _row_stride(lo, "lo"),
-        _lane_stride(lo, lanes, "lo"), hi.data_ptr(), _row_stride(hi, "hi"),
-        _lane_stride(hi, lanes, "hi"), w.data_ptr(), _row_stride(w, "w"), c_scaled.data_ptr(),
-        _lane_stride(c_scaled, lanes, "c_scaled"),
-        inv2.data_ptr(), half, 1 if lanes is None else lanes, *_field_args(field)[:2], _stream(),
-    )
-    _check(code, "fri_fold")
-    launch_counts["fri_fold"] += 1
+    res = fri_fold_plain(field, lo, hi, w, c_scaled, inv2)
+    if out is None:
+        return res
+    out.copy_(res)
     return out
 
 

@@ -43,7 +43,7 @@ GROUPS = (
     ("ntt_level (limb body)", ("ntt_level_kernel",)),
     ("mont_mul", ("mont_mul_kernel", "mont_mul_flat_kernel", "mont_mul_grid_kernel")),
     ("mont_pow", ("mont_pow_kernel",)),
-    ("addsub", ("addsub_kernel",)),
+    ("addsub", ("addsub_flat_kernel", "addsub_grid_kernel", "addsub_general_kernel")),
     ("blake2s", ("blake2s_kernel",)),
     ("fri_fold", ("fri_fold_kernel",)),
     ("wide_reduce", ("wide_reduce_kernel",)),

@@ -246,6 +246,123 @@ def test_fri_fold_kernel(dev, name, half):
         _same(vd, values)  # the operands are read, never written
 
 
+def _worst(field, shape):
+    """Every element p - 1, in every limb."""
+    top = [((field.p - 1) >> (16 * i)) & 0xFFFF for i in range(field.n16)]
+    return torch.tensor(top, dtype=torch.int32).expand(shape + (field.n16,)).contiguous()
+
+
+def _mixed(field, shape, seed):
+    """Elements p - 1, 0 and 1 in turn from `seed` on, so that the operand
+    pairs of every layout meet p - 1 against 0 (the subtraction borrows) and
+    against 1 (the add wraps)."""
+    count = 1
+    for d in shape:
+        count *= d
+    values = torch.stack([_worst(field, ()), torch.zeros(field.n16, dtype=torch.int32),
+                          torch.zeros(field.n16, dtype=torch.int32)])
+    values[2, 0] = 1
+    return values[(torch.arange(count) + seed) % 3].reshape(shape + (field.n16,))
+
+
+def _addsub_layouts(field, make):
+    """{label: (a, b)} of addsub's three bodies on operands from make(shape,
+    seed): flat (contiguous; a scalar; offset and strided views of 1, 3,
+    233 and 1029 elements: no multiple of a block), grid (a period over a
+    row, the LDE shift's (R, 1, T) x (F, T)) and general (a transposed
+    view; an inner dim under a warp)."""
+    a, b = make((5, 2, 70), 30), make((2, 70), 31)
+    flat, long = a.reshape(-1, field.n16), make((1031,), 35)
+    return {
+        "contiguous": (flat, flat.flip(0)),
+        "scalar": (flat, make((), 32)),
+        "1 element": (flat[:1], flat[1:2]),
+        "3 elements": (flat[:3], flat[5:8]),
+        "1029 elements, offset": (long[1:1030], long[2:]),
+        "strided 1-D": (flat[0:699:3], flat[1:700:3]),
+        "period": (a, b),
+        "lde shift": (a[:2, :1], make((7, 70), 33)),
+        "transposed": (a.transpose(0, 2), b.transpose(0, 1)[:, :, None]),
+        "narrow inner": (a[:, :, :3], b[:, 5:8]),
+    }
+
+
+@pytest.mark.parametrize("inputs", ["random", "all p-1", "p-1, 0, 1"])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_addsub_bodies(dev, name, inputs):
+    """Each body of the addsub kernel at n16 = 4 and 16, both modes,
+    against the plain version, with every body launched and counted."""
+    field = FIELDS[name]
+
+    def make(shape, seed):
+        if inputs == "random":
+            return _canonical(field, shape, seed)
+        return _worst(field, shape) if inputs == "all p-1" else _mixed(field, shape, seed)
+
+    seen = set()
+    for label, (x, y) in _addsub_layouts(field, make).items():
+        xd = _on_card(x)
+        yd = _on_card(y)
+        assert xd.stride() == x.stride() and yd.stride() == y.stride(), label
+        body = K.addsub_body(xd, yd)
+        assert body == K.mont_mul_body(x, y), label
+        seen.add(body)
+        for mode in ("add", "sub"):
+            before = dict(K.addsub_body_counts)
+            _same(K.addsub(field, xd, yd, mode), K.addsub_plain(field, x, y, mode))
+            assert K.addsub_body_counts[body] == before[body] + 1, label
+    assert seen == set(K.ADDSUB_BODIES)
+
+
+def test_launch_stream_is_the_current_stream(dev):
+    """The wrappers launch on torch's current stream: the default one, and
+    a side stream made current, whose launch lands before its event."""
+    assert K._stream() == torch.cuda.current_stream().cuda_stream
+    field = F_P63
+    a = _canonical(field, (1001,), 44).to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert K._stream() == side.cuda_stream != torch.cuda.default_stream().cuda_stream
+        got = K.addsub(field, a, a, "add")
+        done = torch.cuda.Event()
+        done.record(side)
+    done.synchronize()
+    assert torch.equal(got.cpu(), K.addsub_plain(field, a.cpu(), a.cpu(), "add"))
+
+
+def _on_card(t):
+    """t's storage on the card, viewed with t's shape, strides and offset."""
+    storage = torch.as_strided(t, (t.untyped_storage().nbytes() // t.element_size(),), (1,), 0)
+    return torch.as_strided(storage.to("cuda"), t.shape, t.stride(), t.storage_offset())
+
+
+@pytest.mark.parametrize("inputs", ["random", "all p-1"])
+@pytest.mark.parametrize("lanes,half", [(None, 1541), (None, 2), (3, 515), (2, 2049)])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_fri_fold_kernel_ragged(dev, name, lanes, half, inputs):
+    """Halves that are no multiple of a block, with and without lanes,
+    every input p - 1 among them, the two halves and the interleaved
+    rows."""
+    field = FIELDS[name]
+    shape = (2 * half,) if lanes is None else (lanes, 2 * half)
+    c_shape = () if lanes is None else (lanes,)
+    if inputs == "random":
+        values, w = _canonical(field, shape, 40), _canonical(field, (2 * half,), 41)
+        c, inv2 = _canonical(field, c_shape, 42), _canonical(field, (), 43)
+    else:
+        values, w = _worst(field, shape), _worst(field, (2 * half,))
+        c, inv2 = _worst(field, c_shape), _worst(field, ())
+    vd, wd, cd, id2 = values.to(dev), w.to(dev), c.to(dev), inv2.to(dev)
+    for lo, hi, tw in ((slice(None, half), slice(half, None), slice(None, half)),
+                       (slice(0, None, 2), slice(1, None, 2), slice(1, None, 2))):
+        before = K.launch_counts["fri_fold"]
+        got = K.fri_fold(field, vd[..., lo, :], vd[..., hi, :], wd[tw], cd, id2)
+        assert K.launch_counts["fri_fold"] == before + 1
+        _same(got, K.fri_fold_plain(field, values[..., lo, :], values[..., hi, :], w[tw], c,
+                                    inv2))
+
+
 LEVEL_CASES = [(2, 3, 5, "table"), (4, 3, 5, "table"), (4, 1, 7, None), (8, 1, 37, "scalar"),
                (64, 5, 2, None), (128, 7, 3, "table"), (128, 1, 33, "scalar")]
 
