@@ -47,6 +47,8 @@ Phases, each reported on its own line:
      cubic_vdf_fstark_t32 on the card, and vdf_fstark_t32 again under
      the "two_step" and "fused" level forms; proof bytes and challenge
      logs must equal tests/golden/, and the port's verifier must accept;
+     then hodor_tpu_torch/tools/gen_golden.py writes the six files on the
+     card into a temporary directory, each byte-equal to tests/golden/;
   5. main path at size: a quadratic VDF over F_STARK at 2^20 rows, lde
      factor 16, FRI to a constant, its witness from the native chain as a
      packed array: prover set-up, a cold and a warm prove with
@@ -118,9 +120,17 @@ Phases, each reported on its own line:
      copy rejected), each rank's peak in the checkpointed prove within
      one row block of its plain prove's; this process then resumes the
      directory the two ranks wrote on one device, byte-equal too.
+ 15. (after phase 8) the port's measuring command,
+     hodor_tpu_torch/tools/bench.py, called in-process as a user runs it
+     (BENCH_RUNS): the NTT at 2^16 and 2^20 over F_STARK, F_BLS and F_P63,
+     at 2^20 under "fused" and "two_step", and held against the CPU at
+     2^12; the quadratic VDF prove at 2^20 rows (3 warm proves) and 2^14;
+     the FRI ladder pair at h1 = 2^24. Each run's JSON line is printed;
+     it must be `correct` or `verified`, name this card, read no vs_sol
+     above 1.05, and the run must launch the kernels of its path.
 Phase 8 runs right after phase 5, whose prover it reuses and then frees;
 every other phase lets its prover go when it returns. Every path of
-phases 5-12 and 14 zeroes the launch counts just before it runs and reads them
+phases 5-12, 14 and 15 zeroes the launch counts just before it runs and reads them
 just after, names the kernels it must have launched and prints the
 launches of each ntt_level body; the 2^20-row F_STARK paths must have run
 the tensor-core body, phases 10 and 11 the butterfly body alone.
@@ -138,6 +148,9 @@ import subprocess
 import sys
 import time
 
+from hodor_tpu_torch.tools.roofline import (OPS_BLAKE2S, bound_ms, ops_addsub, ops_fri_fold,
+                                            ops_mont_mul, ops_ntt_level, ops_wide_reduce)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LOG_ROWS = 20
 LOG_ROWS_LEVEL_FORMS = 16
@@ -145,13 +158,6 @@ LOG_ROWS_WITNESS_FORMS = 14
 LOG_ROWS_BATCH_SMALL = 18
 LOG_ROWS_MESH_W4 = 16
 LOG_ROWS_LARGE = 22
-
-# Published peaks of one H100 SXM: device memory 3.35 TB/s; int8 on the
-# tensor cores 1,979 TOP/s (a multiply-add is two operations); 32-bit
-# integer operations outside the tensor cores at half the float32 lanes
-# (64 of 128 per SM and clock), so half of 67 TFLOP/s / 2 per operation.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "int32": 67e12 / 4}
 
 # name -> (source, the TPU kernel it replaces). mont_mul.cu has two
 # entries, hodor_mont_mul and hodor_mont_pow (x^e in one launch, counted
@@ -170,39 +176,6 @@ KERNEL_INFO = {
                    "hodor_tpu/field/pallas_kernels.py:1097"),
 }
 MAIN_PATH_KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level", "fri_fold")
-
-
-# Least 32-bit integer operations per element of a field of n16 limbs
-# (nw = n16 / 2 words), counted from the sources: a Montgomery product is
-# 2 nw^2 multiply-adds and a compare-subtract; a modular add or sub two
-# nw-word carry chains and a select; the two-step level's reduce folds
-# 4 n16 - 1 columns, then a reduction and a three-step chain; a Blake2s
-# block 10 rounds of 8 G at 14 operations.
-OPS_BLAKE2S = 10 * 8 * 14 + 40
-
-
-def ops_mont_mul(n16: int) -> int:
-    return 2 * (n16 // 2) ** 2 + 3 * (n16 // 2)
-
-
-def ops_addsub(n16: int) -> int:
-    return 3 * (n16 // 2)
-
-
-def ops_fri_fold(n16: int) -> int:
-    return 3 * ops_mont_mul(n16) + 3 * ops_addsub(n16)
-
-
-def ops_wide_reduce(n16: int) -> int:
-    return 4 * (4 * n16 - 1) + (n16 // 2) ** 2 + 9 * (n16 // 2)
-
-
-def ops_ntt_level(size: int, n16: int = 16) -> int:
-    """int8 operations of one level output on the tensor cores: P x P byte
-    products of depth S, a multiply-add two operations, P = 2 n16 byte
-    planes. The yardstick of every body: the card's least time for the
-    function is the tensor cores' or the bytes', whichever body runs."""
-    return 2 * size * (2 * n16) ** 2
 
 
 def level_bodies(size: int):
@@ -294,20 +267,18 @@ def phase_kernels(dev):
         other_ms = {label: cuda_time_ms(fn, reps) for label, fn in other_bodies.items()}
         plain_ms = cuda_time_ms(plain_fn, plain_reps)
         library_ms = None if library_fn is None else cuda_time_ms(library_fn, reps)
-        by_bytes = 1e3 * moved / PEAK_BYTES_PER_S
-        by_ops = 1e3 * n_ops / PEAK_OPS_PER_S[op_kind]
+        bound, bound_by = bound_ms(moved, n_ops, op_kind)
         rec = records[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["cases"].append({
             "case": case, "ms": ms, "device_ms": device_ms, "device_by": device_by,
             "device_copies": copies, "host_us": host_us, "plain_ms": plain_ms,
-            "bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_ms": bound, "bound_by": bound_by,
             "library_ms": library_ms, **{f"{label}_body_ms": t for label, t in other_ms.items()}})
         log(f"kernel {name:11s} {case:36s} bit-equal  kernel {ms:9.3f} ms  device"
             f" {device_ms:9.4f} ms ({device_by}, {copies} copies)  host {host_us:8.1f} us"
             f"  plain {plain_ms:10.3f} ms"
-            f"  bound {max(by_bytes, by_ops):7.3f} ms ({rec['cases'][-1]['bound_by']})"
+            f"  bound {bound:7.3f} ms ({bound_by})"
             + "".join(f"  {label} body {t:7.3f} ms" for label, t in other_ms.items())
             + ("" if library_ms is None else f"  library {library_ms:7.3f} ms"))
 
@@ -756,11 +727,14 @@ def kernel_cases_off_f_stark(dev, field, gen, compare, log_n: int = 20):
 
 
 def phase_goldens(dev) -> None:
+    import tempfile
+
     from hodor_tpu_torch.air import Fibonacci, TestTraceSystem
     from hodor_tpu_torch.field import F257, F_STARK
     from hodor_tpu_torch.models import VDF, CubicVDF
     from hodor_tpu_torch.proof_io import serialize_proof
     from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.tools import gen_golden
     from hodor_tpu_torch.verifier import Verifier
 
     golden = os.path.join(ROOT, "tests", "golden")
@@ -796,6 +770,80 @@ def phase_goldens(dev) -> None:
         check("vdf_fstark_t32", witness, props, F_STARK, impl)
     witness, props = CubicVDF(F_STARK, 1, 1, 31).into_arp()
     check("cubic_vdf_fstark_t32", witness, props, F_STARK)
+
+    # the port's writer of the goldens, on the card, into a directory of its own
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as out:
+        if gen_golden.main(["gen_golden", "--out", out]) != 0:
+            raise AssertionError("tools/gen_golden.py failed on the card")
+        names = sorted(os.listdir(golden))
+        if sorted(os.listdir(out)) != names:
+            raise AssertionError(f"tools/gen_golden.py wrote {sorted(os.listdir(out))}, "
+                                 f"not {names}")
+        for name in names:
+            with open(os.path.join(out, name), "rb") as a, \
+                    open(os.path.join(golden, name), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"tools/gen_golden.py: {name} differs from the golden")
+    log(f"golden: tools/gen_golden.py on the card wrote {len(names)} files, each byte-equal "
+        "to tests/golden/")
+
+
+# phase 15: tools/bench.py's runs (argv, the kernels the run must launch)
+BENCH_RUNS = (
+    [(["--mode", "ntt", "--log-n", str(n), "--field", f], ("ntt_level",))
+     for f in ("F_STARK", "F_BLS", "F_P63") for n in (16, 20)]
+    + [(["--mode", "ntt", "--log-n", "20", "--impl", "fused"], ("dft_reduce",)),
+       (["--mode", "ntt", "--log-n", "20", "--impl", "two_step"], ("wide_reduce",)),
+       (["--mode", "ntt", "--log-n", "12", "--check"], ("ntt_level",)),
+       (["--mode", "prove", "--log-rows", "20", "--reps", "3"], MAIN_PATH_KERNELS),
+       (["--mode", "prove", "--log-rows", "14"], MAIN_PATH_KERNELS),
+       (["--mode", "fri", "--log-h1", "24"], ("mont_mul", "ntt_level", "blake2s", "fri_fold"))]
+)
+
+
+def phase_bench(dev) -> dict:
+    """Phase 15: the port's measuring command, tools/bench.py, called
+    in-process on the card as a user would run it; each run's JSON line is
+    printed. A run fails the phase unless it returns 0 with its line
+    `correct` or `verified`, on this card, with no vs_sol above 1.05 (the
+    NTT's share of the H100's bound), and launches the kernels its path
+    runs. Returns {path: launch counts}."""
+    import io
+
+    import torch
+
+    from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.tools import bench
+
+    kind = torch.cuda.get_device_name(0)
+    paths = {}
+    for argv, kernels in BENCH_RUNS:
+        label = "bench " + " ".join(argv)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["bench", *argv])
+        counts = dict(K.launch_counts)
+        out = buf.getvalue().splitlines()
+        log(out[-1] if out else f"{label}: no line")
+        if rc != 0 or len(out) != 1:
+            raise AssertionError(f"{label}: returned {rc} with {len(out)} lines")
+        line = json.loads(out[0])
+        if not (line.get("correct") is True or line.get("verified") is True):
+            raise AssertionError(f"{label}: the line is neither correct nor verified")
+        if line["device"] != kind:
+            raise AssertionError(f"{label}: ran on {line['device']!r}, not {kind!r}")
+        if "vs_sol" in line and not line["vs_sol"] <= 1.05:
+            raise AssertionError(f"{label}: vs_sol {line['vs_sol']} above 1.05 of the bound")
+        require_launched(label, counts, kernels)
+        log(f"{label}: {time.perf_counter() - t0:.2f} s, launches {json.dumps(counts)}, "
+            f"ntt_level by body {json.dumps(K.ntt_level_body_counts)}")
+        paths[label] = counts
+    return paths
 
 
 def require_launched(path: str, counts, names) -> None:
@@ -1709,6 +1757,8 @@ def main() -> int:
     main_proof, main_peaks = main_warm["proof"], main_warm["peaks"]
     main_addsub_bodies = main_warm["addsub_bodies"]
     del main_warm
+    # phase 15 after phase 5's prover is let go: the bench builds its own
+    paths.update(phase_bench(dev))
     phase_witness_forms(dev)
     paths["cubic VDF 2^20"] = phase_at_size(dev, "cubic VDF", F_STARK,
                                             CubicVDF(F_STARK, 1, 1, rows).into_arp)[0]

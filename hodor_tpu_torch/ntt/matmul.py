@@ -207,6 +207,20 @@ def dft_level(ops: LimbOps, x, inverse: bool, tw=None):
                              w_planes=planes)
 
 
+def level_sizes(field: Field, n: int):
+    """The radices of the levels `ntt_matmul` runs for a length-n
+    transform over `field`, in order (each level writes n outputs): the
+    field's largest radix up to RADIX while more than one is left, then
+    the rest; 128, 128, 64 for F_STARK at 2^20. `ntt_matmul` takes its
+    first level from here."""
+    radix = min(RADIX, max_radix(field))
+    sizes = []
+    while n > radix:
+        sizes.append(radix)
+        n //= radix
+    return sizes + ([n] if n > 1 else [])
+
+
 def ntt_matmul(ops: LimbOps, x, inverse: bool = False, scale=None, out=None):
     """Natural-order NTT over axis -2 of (..., N, n16) using radix-128
     levels. scale: optional (n16,) Montgomery constant applied in the
@@ -219,14 +233,14 @@ def ntt_matmul(ops: LimbOps, x, inverse: bool = False, scale=None, out=None):
     L = x.shape[-1]
     lead = x.shape[:-2]
     b = int(np.prod(lead, dtype=np.int64)) if lead else 1
-    radix = min(RADIX, max_radix(ops.field))
-    if n <= radix:
+    sizes = level_sizes(ops.field, n)
+    if len(sizes) < 2:
         if n == 1:
             res = x if scale is None else ops.mul(x, scale)
         else:
             res = dft_level(ops, x.reshape(b, n, 1, L), inverse, tw=scale).reshape(x.shape)
         return res if out is None else out.copy_(res)
-    n1 = radix
+    n1 = sizes[0]
     n2 = n // n1
     # j = j1*n2 + j2: DFT over j1 -> [k1, j2], times w_N^(k1*j2)
     inner = dft_level(ops, x.reshape(b, n1, n2, L), inverse,

@@ -630,3 +630,25 @@ def test_proof_bytes_on_the_card_equal_the_cpu(dev, name, lde_factor, fri):
         blobs.append(serialize_proof(proof, field))
         assert Verifier(props, lde_factor=lde_factor).verify(proof)
     assert blobs[0] == blobs[1]
+
+
+def test_bench_ntt_is_correct_on_the_card(dev):
+    """tools/bench.py's ntt mode at 2^16 on the card: intt(ntt(x)) is x,
+    the seeded outputs equal the host's values, the line names the card
+    and reads a share of the H100's bound (its bytes at this size)."""
+    from hodor_tpu_torch.tools import bench
+
+    line, out = bench.bench_ntt(bench.parse_args(["--log-n", "16", "--reps", "2"]), dev)
+    assert line["correct"] is True and out.device == dev
+    assert line["metric"] == "ntt_2^16_F_STARK_field_muls_per_s_per_chip"
+    assert 0 < line["vs_sol"] <= 1.05 and line["bound_by"] == "bytes"
+
+
+def test_bench_prove_is_verified_on_the_card(dev):
+    """tools/bench.py's prove mode at 2^10 rows on the card."""
+    from hodor_tpu_torch.tools import bench
+
+    line, proofs = bench.bench_prove(
+        bench.parse_args(["--mode", "prove", "--log-rows", "10", "--reps", "1"]), dev)
+    assert line["verified"] is True and len(proofs) == 1
+    assert line["metric"] == "quadratic_vdf_2^10_rows_prove_wall_s" and line["peak_gib"] > 0
