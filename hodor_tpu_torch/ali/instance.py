@@ -49,7 +49,7 @@ from ..field.field import Field
 from ..field.limbs import LimbOps, fetch_together
 from ..ntt import distribute_powers, evaluate_at, icoset_ntt, lde
 from ..parallel import gather_rows, local_rows, sharded_coset_lde_rows, sharded_icoset_ntt
-from ..profiling import form_counts
+from ..profiling import form_counts, span
 from ..transcript import Blake2sTranscript
 
 # The most rows (a rank's) of an evaluation domain whose points DEEP
@@ -210,29 +210,31 @@ class ALIInstance:
         """Draw (alpha, beta) per constraint (in density-batch order) then
         per boundary constraint - the exact reference order
         (src/ali/per_register/mod.rs:425-432 and :482-487)."""
-        constraint_ch = []
-        for _key, batch in self.batches.items():
-            for _ in batch:
+        constraint_ch, boundary_ch = [], []
+        with span("transcript"):
+            for _key, batch in self.batches.items():
+                for _ in batch:
+                    a = transcript.get_challenge()
+                    b = transcript.get_challenge()
+                    constraint_ch.append((a, b))
+            for _ in self.properties.boundary_constraints:
                 a = transcript.get_challenge()
                 b = transcript.get_challenge()
-                constraint_ch.append((a, b))
-        boundary_ch = []
-        for _ in self.properties.boundary_constraints:
-            a = transcript.get_challenge()
-            b = transcript.get_challenge()
-            boundary_ch.append((a, b))
+                boundary_ch.append((a, b))
         return constraint_ch, boundary_ch
 
     def calculate_g(self, transcript: Blake2sTranscript, witness_coeffs):
         """witness_coeffs: (R, T, L). Returns G in coefficient form (D, L),
         on every rank under a mesh. Draws challenges from the transcript
         exactly like the reference."""
-        constraint_ch, boundary_ch = self.draw_g_challenges(transcript)
-        ops = self.ops
-        return self._g_poly(
-            witness_coeffs,
-            ops.encode([a for a, _ in constraint_ch]), ops.encode([b for _, b in constraint_ch]),
-            ops.encode([a for a, _ in boundary_ch]), ops.encode([b for _, b in boundary_ch]))
+        with span("ali.g"):
+            constraint_ch, boundary_ch = self.draw_g_challenges(transcript)
+            ops = self.ops
+            return self._g_poly(
+                witness_coeffs,
+                ops.encode([a for a, _ in constraint_ch]),
+                ops.encode([b for _, b in constraint_ch]),
+                ops.encode([a for a, _ in boundary_ch]), ops.encode([b for _, b in boundary_ch]))
 
     def calculate_g_batch(self, transcripts, witness_coeffs_b):
         """Batched calculate_g (hodor_tpu/ali/instance.py calculate_g_batch):
@@ -241,16 +243,17 @@ class ALIInstance:
         product and sum covers all lanes in one launch; the divisors, the
         coset values and the adjustment tables are shared by the lanes."""
         ops = self.ops
-        ch = [self.draw_g_challenges(t) for t in transcripts]
+        with span("ali.g"):
+            ch = [self.draw_g_challenges(t) for t in transcripts]
 
-        def rows(which, k):
-            # (rows, B, L): row i holds alpha (k = 0) or beta (k = 1) of
-            # constraint i (which = 0) or boundary constraint i (which = 1)
-            # in every lane
-            return ops.encode([[lane[which][i][k] for lane in ch]
-                               for i in range(len(ch[0][which]))])
+            def rows(which, k):
+                # (rows, B, L): row i holds alpha (k = 0) or beta (k = 1) of
+                # constraint i (which = 0) or boundary constraint i (which = 1)
+                # in every lane
+                return ops.encode([[lane[which][i][k] for lane in ch]
+                                   for i in range(len(ch[0][which]))])
 
-        return self._g_poly(witness_coeffs_b, rows(0, 0), rows(0, 1), rows(1, 0), rows(1, 1))
+            return self._g_poly(witness_coeffs_b, rows(0, 0), rows(0, 1), rows(1, 0), rows(1, 1))
 
     @staticmethod
     def _lane_scalar(t):
@@ -373,11 +376,12 @@ class ALIInstance:
         :129-146); an exact host check keeps a poisoned batch inverse out
         of DEEP."""
         field = self.field
-        z = transcript.get_challenge()
-        # the reference draws each alpha after its mask's evaluation but
-        # with no commits in between, so all of them depend only on z
-        # (deep.rs:78)
-        alphas = [transcript.get_challenge() for _ in self.all_masks]
+        with span("transcript"):
+            z = transcript.get_challenge()
+            # the reference draws each alpha after its mask's evaluation but
+            # with no commits in between, so all of them depend only on z
+            # (deep.rs:78)
+            alphas = [transcript.get_challenge() for _ in self.all_masks]
         roots = [field.mul(m.mask, z) for m in self.all_masks]
         for root in roots:
             if field.pow(root, n_f) == 1:
@@ -395,10 +399,11 @@ class ALIInstance:
         g_lde (N_g, L); under a mesh f_ldes and g_lde are this rank's row
         blocks, and so are the h1 and h2 returned."""
         ops = self.ops
-        z, alphas, roots = self._draw_deep(transcript, f_ldes.shape[-2] * self._ranks,
-                                           g_lde.shape[-2] * self._ranks)
-        return self._deep(witness_coeffs, f_ldes, g_poly, g_lde, ops.const(z),
-                          ops.encode(alphas), ops.encode(roots))
+        with span("ali.deep_quotients"):
+            z, alphas, roots = self._draw_deep(transcript, f_ldes.shape[-2] * self._ranks,
+                                               g_lde.shape[-2] * self._ranks)
+            return self._deep(witness_coeffs, f_ldes, g_poly, g_lde, ops.const(z),
+                              ops.encode(alphas), ops.encode(roots))
 
     def calculate_deep_batch(self, witness_coeffs_b, f_ldes_b, g_poly_b, g_lde_b, transcripts):
         """Batched calculate_deep (hodor_tpu/ali/instance.py
@@ -408,12 +413,13 @@ class ALIInstance:
         it. Returns (h1 (B, N_f, L), h2 (B, N_g, L), f(mz) per lane, g(z)
         per lane), with one host fetch for all lanes."""
         ops = self.ops
-        drawn = [self._draw_deep(t, f_ldes_b.shape[-2] * self._ranks,
-                                 g_lde_b.shape[-2] * self._ranks) for t in transcripts]
-        return self._deep(witness_coeffs_b, f_ldes_b, g_poly_b, g_lde_b,
-                          ops.encode([z for z, _, _ in drawn]),
-                          ops.encode([alphas for _, alphas, _ in drawn]),
-                          ops.encode([roots for _, _, roots in drawn]))
+        with span("ali.deep_quotients"):
+            drawn = [self._draw_deep(t, f_ldes_b.shape[-2] * self._ranks,
+                                     g_lde_b.shape[-2] * self._ranks) for t in transcripts]
+            return self._deep(witness_coeffs_b, f_ldes_b, g_poly_b, g_lde_b,
+                              ops.encode([z for z, _, _ in drawn]),
+                              ops.encode([alphas for _, alphas, _ in drawn]),
+                              ops.encode([roots for _, _, roots in drawn]))
 
     def _deep(self, witness_coeffs, f_ldes, g_poly, g_lde, z_m, alphas_m, roots_m):
         """DEEP on one proof or on B lanes: witness_coeffs ([B,] R, T, L),
@@ -498,9 +504,10 @@ class ALIInstance:
         key = ("domain_points", n, first)
         if count == rows and key in self.ops.tables:
             return self.ops.tables[key]
-        g = Domain.new_for_size(self.field, n).generator
-        start = self.ops.const(self.field.pow(g, first)) if first else None
-        points = self.ops.powers(self.ops.const(g), count, start=start)
+        with span("domain_points"):
+            g = Domain.new_for_size(self.field, n).generator
+            start = self.ops.const(self.field.pow(g, first)) if first else None
+            points = self.ops.powers(self.ops.const(g), count, start=start)
         if count == rows:
             self.ops.tables[key] = points
         return points

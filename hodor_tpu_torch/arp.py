@@ -34,6 +34,7 @@ from .errors import SynthesisError, TracingError, UnsatisfiedError
 from .field.field import Field
 from .field.limbs import LimbOps, is_u64_rows
 from .ntt import intt
+from .profiling import span
 from .utils.native import u64_rows_to_ints
 
 
@@ -113,7 +114,8 @@ class ARPInstance:
             raise SynthesisError("register count mismatch")
         if t != next_power_of_two(self.properties.num_rows):
             raise SynthesisError("row count mismatch")
-        return intt(self.ops, witness_device)
+        with span("witness_polys"):
+            return intt(self.ops, witness_device)
 
     def encode_witness(self, witness: Witness):
         """Host witness columns -> padded (R, T, L) Montgomery tensor on
@@ -122,10 +124,11 @@ class ARPInstance:
         little-endian words (utils/native.py), which skips the packing of
         Python ints: one copy to the device and one to-Montgomery mul."""
         t_sup = next_power_of_two(self.properties.num_rows)
-        if is_u64_rows(witness):
-            return self.ops.encode_u64_rows(witness, pad_rows=t_sup)
-        padded = [list(col) + [0] * (t_sup - len(col)) for col in witness]
-        return self.ops.encode(padded)
+        with span("encode_witness"):
+            if is_u64_rows(witness):
+                return self.ops.encode_u64_rows(witness, pad_rows=t_sup)
+            padded = [list(col) + [0] * (t_sup - len(col)) for col in witness]
+            return self.ops.encode(padded)
 
     # ---- satisfiability (reference verify_witness,
     #      src/arp/per_register/mod.rs:135-265) ----

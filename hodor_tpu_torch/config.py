@@ -35,7 +35,6 @@ class ProofSystemConfig:
     iop_hash: str = "blake2s"
     fri_impl: str = "naive_on_values"
     mesh: Optional[Any] = None
-    profile: bool = False  # collect StageTimer records on prove()
 
     def __post_init__(self):
         if self.lde_factor & (self.lde_factor - 1):

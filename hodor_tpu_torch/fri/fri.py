@@ -44,6 +44,7 @@ from ..merkle.tree import (IopQuery, MerkleTree, digest_to_bytes, keep_roots, ta
                            verify_path)
 from ..ntt import intt, lde
 from ..parallel.multihost import ShardedMerkleTree, sharded_openings
+from ..profiling import span
 
 
 @dataclasses.dataclass
@@ -108,11 +109,12 @@ def fold_pair(ops: LimbOps, lo, hi, challenge_limbs, stride: int, log_domain: in
     1/2): the same canonical limbs as (lo+hi + c*w*(lo-hi))/2 in any
     order."""
     p = ops.field.p
-    step = pow(Domain.new_for_size(ops.field, 1 << log_domain).generator_inv, stride, p)
-    start = ops.const(pow(step, first, p)) if first else None
-    w = ops.powers(ops.const(step), lo.shape[-2], start=start)
-    c_scaled = ops.mul(challenge_limbs, ops.two_inv_m)
-    return kernels.fri_fold(ops.field, lo, hi, w, c_scaled, ops.two_inv_m)
+    with span("fri.fold"):
+        step = pow(Domain.new_for_size(ops.field, 1 << log_domain).generator_inv, stride, p)
+        start = ops.const(pow(step, first, p)) if first else None
+        w = ops.powers(ops.const(step), lo.shape[-2], start=start)
+        c_scaled = ops.mul(challenge_limbs, ops.two_inv_m)
+        return kernels.fri_fold(ops.field, lo, hi, w, c_scaled, ops.two_inv_m)
 
 
 def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int, first_round: int = 0):
@@ -124,15 +126,19 @@ def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int, first_r
 
     Returns (trees, intermediate values, final coefficients (K, L) or
     (B, K, L))."""
-    trees = [MerkleTree.create(lde_values, ops.field)]
-    challenge = digest_to_challenge_mont(ops, trees[0].root_digest())
+    with span("merkle.commit"):
+        trees = [MerkleTree.create(lde_values, ops.field)]
+    with span("fri.challenge"):
+        challenge = digest_to_challenge_mont(ops, trees[0].root_digest())
     values = lde_values
     intermediate = []
     for i in range(first_round, first_round + num_steps):
         values = fold_round(ops, values, challenge, 1 << i, log_domain)
-        tree = MerkleTree.create(values, ops.field)
+        with span("merkle.commit"):
+            tree = MerkleTree.create(values, ops.field)
         trees.append(tree)
-        challenge = digest_to_challenge_mont(ops, tree.root_digest())
+        with span("fri.challenge"):
+            challenge = digest_to_challenge_mont(ops, tree.root_digest())
         intermediate.append(values)
     return trees, intermediate, intt(ops, values)
 
@@ -200,8 +206,9 @@ def run_ladders(ops: LimbOps, ldes, lde_factor: int, output_coeffs_at_degree_plu
                  sharded_fri_chain(ops, lde_values, steps, log2_floor(n), mesh))
         chains.append((idpo,) + chain)
     trees = [tree for chain in chains for tree in chain[1]]
-    host = fetch_together([t.root_digest() for t in trees] + [chain[3] for chain in chains])
-    keep_roots(trees, host[:len(trees)])
+    with span("fri.fetch"):
+        host = fetch_together([t.root_digest() for t in trees] + [chain[3] for chain in chains])
+        keep_roots(trees, host[:len(trees)])
     return [(idpo, trees, inter, fc)
             for (idpo, trees, inter, _), fc in zip(chains, host[len(trees):])]
 
@@ -261,15 +268,16 @@ class NaiveFriIop:
         """Host-side prototype assembly from a ladder's outputs (one lane);
         final_coeffs: Montgomery limbs, on the host or the device."""
         field = ops.field
-        root_bytes = [tree.get_root() for tree in trees]
-        # all tree challenges except the last tree's (the final fold
-        # draws none, fri_on_values.rs:122)
-        challenges = [field.from_be_with_shave(rb) for rb in root_bytes[:-1]]
-        roots = root_bytes[1:]
-        final_root = roots[-1] if roots else root_bytes[0]
-        final_coeffs = [int(v) for v in ops.decode(final_coeffs)][
-            :output_coeffs_at_degree_plus_one
-        ]
+        with span("fri.prototype"):
+            root_bytes = [tree.get_root() for tree in trees]
+            # all tree challenges except the last tree's (the final fold
+            # draws none, fri_on_values.rs:122)
+            challenges = [field.from_be_with_shave(rb) for rb in root_bytes[:-1]]
+            roots = root_bytes[1:]
+            final_root = roots[-1] if roots else root_bytes[0]
+            final_coeffs = [int(v) for v in ops.decode(final_coeffs)][
+                :output_coeffs_at_degree_plus_one
+            ]
         return FRIProofPrototype(
             l0_commitment=trees[0],
             intermediate_commitments=list(trees[1:]),

@@ -38,6 +38,7 @@ from ..domain import Domain
 from ..field import kernels
 from ..field.field import Field
 from ..field.limbs import LimbOps, int_to_limbs
+from ..profiling import span
 
 RADIX = 128
 
@@ -58,14 +59,15 @@ def dft_matrix(ops: LimbOps, size: int, inverse: bool) -> torch.Tensor:
     generator of the size-`size` domain (its inverse when `inverse`)."""
     key = ("dft", size, inverse)
     if key not in ops.tables:
-        field = ops.field
-        domain = Domain.new_for_size(field, size)
-        w = domain.generator_inv if inverse else domain.generator
-        pows = np.stack([
-            int_to_limbs(field.to_mont(pow(w, t, field.p)), ops.n16) for t in range(size)
-        ]).astype(np.int32)
-        idx = np.outer(np.arange(size), np.arange(size)) % size
-        ops.tables[key] = torch.from_numpy(np.ascontiguousarray(pows[idx])).to(ops.device)
+        with span("ops.tables"):
+            field = ops.field
+            domain = Domain.new_for_size(field, size)
+            w = domain.generator_inv if inverse else domain.generator
+            pows = np.stack([
+                int_to_limbs(field.to_mont(pow(w, t, field.p)), ops.n16) for t in range(size)
+            ]).astype(np.int32)
+            idx = np.outer(np.arange(size), np.arange(size)) % size
+            ops.tables[key] = torch.from_numpy(np.ascontiguousarray(pows[idx])).to(ops.device)
     return ops.tables[key]
 
 
@@ -75,7 +77,8 @@ def dft_matrix_planes(ops: LimbOps, size: int, inverse: bool) -> torch.Tensor:
     n16 = 16, S = 128), built once per LimbOps beside `dft_matrix`."""
     key = ("dft_planes", size, inverse)
     if key not in ops.tables:
-        ops.tables[key] = kernels.dft_byte_planes(dft_matrix(ops, size, inverse))
+        with span("ops.tables"):
+            ops.tables[key] = kernels.dft_byte_planes(dft_matrix(ops, size, inverse))
     return ops.tables[key]
 
 
@@ -85,10 +88,11 @@ def level_twiddles(ops: LimbOps, n: int, n1: int, inverse: bool) -> torch.Tensor
     w_N^k1, then n2 powers of each."""
     key = ("twiddle", n, n1, inverse)
     if key not in ops.tables:
-        domain = Domain.new_for_size(ops.field, n)
-        w = domain.generator_inv if inverse else domain.generator
-        bases = ops.powers(ops.const(w), n1)  # (n1, L)
-        ops.tables[key] = ops.powers(bases, n // n1)  # (n1, n2, L)
+        with span("ops.tables"):
+            domain = Domain.new_for_size(ops.field, n)
+            w = domain.generator_inv if inverse else domain.generator
+            bases = ops.powers(ops.const(w), n1)  # (n1, L)
+            ops.tables[key] = ops.powers(bases, n // n1)  # (n1, n2, L)
     return ops.tables[key]
 
 
@@ -105,21 +109,22 @@ def folded_dft_matrix(ops: LimbOps, size: int, inverse: bool):
     int8 at n16 = 16 and S = 128, built once per LimbOps."""
     key = ("dft_folded", size, inverse)
     if key not in ops.tables:
-        limbs = dft_matrix(ops, size, inverse).cpu().numpy()  # (S, S, n16)
-        planes = np.stack([limbs & 0xFF, limbs >> 8], axis=-1).reshape(size, size, -1)
-        P = planes.shape[-1]
-        C = 2 * P - 1
-        w_s8 = np.full((C, size, size, P), -128, dtype=np.int8)
-        w_sum = np.zeros((C, size), dtype=np.int32)
-        row_sums = planes.sum(axis=1, dtype=np.int32)  # (S, P): over j
-        for c in range(C):
-            for q in range(max(0, c - P + 1), min(c, P - 1) + 1):
-                w_s8[c, :, :, q] = planes[:, :, c - q] - 128
-                w_sum[c] += row_sums[:, c - q]
-        ops.tables[key] = (
-            torch.from_numpy(w_s8.reshape(C, size, size * P)).to(ops.device),
-            torch.from_numpy(w_sum).to(ops.device),
-        )
+        with span("ops.tables"):
+            limbs = dft_matrix(ops, size, inverse).cpu().numpy()  # (S, S, n16)
+            planes = np.stack([limbs & 0xFF, limbs >> 8], axis=-1).reshape(size, size, -1)
+            P = planes.shape[-1]
+            C = 2 * P - 1
+            w_s8 = np.full((C, size, size, P), -128, dtype=np.int8)
+            w_sum = np.zeros((C, size), dtype=np.int32)
+            row_sums = planes.sum(axis=1, dtype=np.int32)  # (S, P): over j
+            for c in range(C):
+                for q in range(max(0, c - P + 1), min(c, P - 1) + 1):
+                    w_s8[c, :, :, q] = planes[:, :, c - q] - 128
+                    w_sum[c] += row_sums[:, c - q]
+            ops.tables[key] = (
+                torch.from_numpy(w_s8.reshape(C, size, size * P)).to(ops.device),
+                torch.from_numpy(w_sum).to(ops.device),
+            )
     return ops.tables[key]
 
 

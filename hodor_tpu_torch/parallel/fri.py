@@ -29,6 +29,7 @@ from ..field.limbs import from_numpy_limbs
 from ..merkle.blake2s import digest_to_challenge_mont
 from ..merkle.tree import MerkleTree
 from ..ntt import intt
+from ..profiling import span
 from . import all_to_all_v, gather_rows, local_rows
 from .multihost import ShardedMerkleTree
 
@@ -94,10 +95,12 @@ def sharded_fri_chain(ops, block, num_steps: int, log_domain: int, mesh):
             tail_trees, tail_values, coeffs = fri_chain(ops, whole, num_steps - i, log_domain,
                                                         first_round=i)
             return trees + tail_trees, intermediate[:-1] + [whole] + tail_values, coeffs
-        trees.append(ShardedMerkleTree.create(values, ops.field, mesh, order))
+        with span("merkle.commit"):
+            trees.append(ShardedMerkleTree.create(values, ops.field, mesh, order))
         if i == num_steps:
             break
-        challenge = digest_to_challenge_mont(ops, trees[-1].root_digest())
+        with span("fri.challenge"):
+            challenge = digest_to_challenge_mont(ops, trees[-1].root_digest())
         values = fold_block(ops, values, order, challenge, 1 << i, log_domain, mesh)
         intermediate.append(values)
     return trees, intermediate, intt(ops, gather_rows(values, mesh, orders[-1]))

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 from typing import List, Optional
 
 import numpy as np
@@ -63,7 +64,7 @@ from .parallel import (collective_snapshot, collectives_since, local_rows, rows_
                        sharded_lde)
 from .parallel.fri import ladder_from_layers
 from .parallel.multihost import ShardedMerkleTree
-from .profiling import StageTimer
+from .profiling import SpanRecorder, span
 from .transcript import Blake2sTranscript, bytes_to_challenge_index
 
 
@@ -90,6 +91,9 @@ def _opening(ops: LimbOps, index: int, v, sibs) -> IopQuery:
 
 
 class Prover:
+    # one id a prove (a batch's lanes share it), unique in the process
+    _proof_ids = itertools.count()
+
     @staticmethod
     def from_config(properties: InstanceProperties, config, device="cuda") -> "Prover":
         """Construct from a ProofSystemConfig (config.py), the runtime
@@ -107,29 +111,53 @@ class Prover:
         "level", "two_step" or "fused" (ntt/matmul.py); the proof bytes are
         the same under all three. mesh: a DeviceMesh (parallel.make_mesh)
         to prove over as one of its ranks, device being this rank's; the
-        proof bytes are those of one device."""
-        self.field = properties.field
-        self.device = torch.device(device)
-        if mesh is not None and mesh.device_type != self.device.type:
-            raise ValueError(f"a mesh of {mesh.device_type} devices cannot prove on "
-                             f"{self.device}")
-        self.mesh = mesh
-        self.ops = LimbOps(self.field, self.device, ntt_impl)
-        self.arp = ARPInstance.from_instance(properties, self.ops)
-        self.ali = ALIInstance(self.arp, mesh)
-        self.lde_factor = lde_factor
-        self.fri_final_degree_plus_one = fri_final_degree_plus_one
+        proof bytes are those of one device.
+
+        The construction's spans ("prover.init") open the record of the
+        next prove: a prove's record holds what this Prover did since its
+        previous prove returned."""
+        self._record = SpanRecorder(device)
+        with self._record.active(), self._record.span("prover.init"):
+            self.field = properties.field
+            self.device = torch.device(device)
+            if mesh is not None and mesh.device_type != self.device.type:
+                raise ValueError(f"a mesh of {mesh.device_type} devices cannot prove on "
+                                 f"{self.device}")
+            self.mesh = mesh
+            self.ops = LimbOps(self.field, self.device, ntt_impl)
+            with span("arp.route"):
+                self.arp = ARPInstance.from_instance(properties, self.ops)
+            with span("ali.tables"):
+                self.ali = ALIInstance(self.arp, mesh)
+            self.lde_factor = lde_factor
+            self.fri_final_degree_plus_one = fri_final_degree_plus_one
+
+    @contextlib.contextmanager
+    def _recording(self):
+        """The record of a prove (`last_timings`): everything recorded since
+        the previous prove returned, under a new proof id, and the
+        module-level spans while the prove runs; a new record begins as
+        it returns."""
+        timer = self._record
+        timer.proof = next(Prover._proof_ids)
+        self.last_timings = timer
+        try:
+            with timer.active():
+                yield timer
+        finally:
+            self._record = SpanRecorder(self.device)
 
     def _lde(self, coeffs):
         """The LDE of (..., T, L) coefficients by lde_factor; under a mesh
         this rank's row block of it, the coset axis split over the ranks
         where W divides the factor (hodor_tpu/prover.py:101-106)."""
-        if self.mesh is None:
-            return lde(self.ops, coeffs, self.lde_factor)
-        w = self.mesh.size()
-        if self.lde_factor % w == 0 and coeffs.shape[-2] % w == 0:
-            return sharded_lde(self.ops, coeffs, self.lde_factor, self.mesh)
-        return local_rows(lde(self.ops, coeffs, self.lde_factor), self.mesh).clone()
+        with span("lde"):
+            if self.mesh is None:
+                return lde(self.ops, coeffs, self.lde_factor)
+            w = self.mesh.size()
+            if self.lde_factor % w == 0 and coeffs.shape[-2] % w == 0:
+                return sharded_lde(self.ops, coeffs, self.lde_factor, self.mesh)
+            return local_rows(lde(self.ops, coeffs, self.lde_factor), self.mesh).clone()
 
     def _trees(self, values):
         """The oracles of (R, N, L) values (this rank's (R, N/W, L) row
@@ -138,8 +166,15 @@ class Prover:
             return [MerkleTree.create(v, self.field) for v in values]
         return ShardedMerkleTree.create_many(values, self.field, self.mesh)
 
+    def _commit(self, values):
+        """The oracles of values (as `_trees`) and their roots, fetched in
+        one copy."""
+        with span("merkle.commit"):
+            trees = self._trees(values)
+            return trees, fetch_roots(trees)
+
     @contextlib.contextmanager
-    def _stage(self, timer: StageTimer, name: str):
+    def _stage(self, timer: SpanRecorder, name: str):
         """A timed stage; under a mesh its collectives' calls, bytes and
         seconds go into last_exchanges[name]."""
         before = collective_snapshot()
@@ -228,6 +263,11 @@ class Prover:
         either package. Under a mesh every rank reads the directory and
         rank 0 writes it: with ranks on several hosts it must lie on a
         file system that every rank sees."""
+        with self._recording() as timer:
+            return self._prove(timer, witness, checkpoint_dir)
+
+    def _prove(self, timer: SpanRecorder, witness: Witness,
+               checkpoint_dir: Optional[str]) -> InstanceProof:
         ops = self.ops
         field = self.field
         ck, done = None, []
@@ -242,8 +282,6 @@ class Prover:
         transcript = Blake2sTranscript(field)
         # exposed for Fiat-Shamir audits (the golden-vector tests)
         self.last_transcript = transcript
-        timer = StageTimer(self.device)
-        self.last_timings = timer
         self.last_exchanges = {}
 
         def load(stage):
@@ -268,10 +306,10 @@ class Prover:
                 witness_polys = self.arp.calculate_witness_polys(w_dev)  # (R, T, L)
                 del w_dev
                 f_ldes = self._lde(witness_polys)  # (R, N_f, L), (R, N_f/W, L) under a mesh
-                f_oracles = self._trees(f_ldes)
-                f_iop_roots = fetch_roots(f_oracles)
-            for rb in f_iop_roots:
-                transcript.commit_bytes(rb)
+                f_oracles, f_iop_roots = self._commit(f_ldes)
+            with span("transcript"):
+                for rb in f_iop_roots:
+                    transcript.commit_bytes(rb)
             if ck is not None:
                 self._save(ck, "stage1", {"witness_polys": self._to_file(witness_polys),
                                           "f_ldes": self._to_file(f_ldes, blocks)},
@@ -291,9 +329,9 @@ class Prover:
             with self._stage(timer, "g_composition+g_oracle"):
                 g_poly = self.ali.calculate_g(transcript, witness_polys)  # (D, L)
                 g_lde_vals = self._lde(g_poly)
-                (g_oracle,) = self._trees(g_lde_vals[None])
-                (g_iop_root,) = fetch_roots([g_oracle])
-            transcript.commit_bytes(g_iop_root)
+                (g_oracle,), (g_iop_root,) = self._commit(g_lde_vals[None])
+            with span("transcript"):
+                transcript.commit_bytes(g_iop_root)
             if ck is not None:
                 self._save(ck, "stage_g", {"g_poly": self._to_file(g_poly),
                                            "g_lde_vals": self._to_file(g_lde_vals, blocks)},
@@ -331,45 +369,52 @@ class Prover:
             if ck is not None:
                 self._save_fri(ck, (h1_proto, h2_proto), transcript)
 
-        # 7. commit final roots + coefficients (src/prover/mod.rs:118-127)
-        for proto in (h1_proto, h2_proto):
-            transcript.commit_bytes(proto.get_final_root())
-            for el in proto.get_final_coefficients():
-                transcript.commit_field_element(el)
+        with span("transcript"):
+            # 7. commit final roots + coefficients (src/prover/mod.rs:118-127)
+            for proto in (h1_proto, h2_proto):
+                transcript.commit_bytes(proto.get_final_root())
+                for el in proto.get_final_coefficients():
+                    transcript.commit_field_element(el)
 
-        # 8. challenge indices (src/prover/mod.rs:129-139) on the LDE domains
-        n_h1, n_h2 = (proto.l0_commitment.size for proto in (h1_proto, h2_proto))
-        x_h1 = bytes_to_challenge_index(transcript.get_challenge_bytes(), n_h1, self.lde_factor)
-        x_h2 = bytes_to_challenge_index(transcript.get_challenge_bytes(), n_h2, self.lde_factor)
+            # 8. challenge indices (src/prover/mod.rs:129-139) on the LDE domains
+            n_h1, n_h2 = (proto.l0_commitment.size for proto in (h1_proto, h2_proto))
+            x_h1 = bytes_to_challenge_index(transcript.get_challenge_bytes(), n_h1,
+                                            self.lde_factor)
+            x_h2 = bytes_to_challenge_index(transcript.get_challenge_bytes(), n_h2,
+                                            self.lde_factor)
 
         # 9+10. all query openings: both FRI chains' coset walks
         # (src/prover/mod.rs:142-143) and the f/g oracle openings
         # (:146-151), one gather (under a mesh one all_gather for every
         # sharded tree) and one fetch
         with self._stage(timer, "queries"):
-            h1_plan = NaiveFriIop.query_plan(h1_proto, h1_lde, x_h1)
-            h2_plan = NaiveFriIop.query_plan(h2_proto, h2_lde, x_h2)
-            x1 = torch.tensor([x_h1], dtype=torch.int64, device=self.device)
-            x2 = torch.tensor([x_h2], dtype=torch.int64, device=self.device)
-            chain_data = (h1_plan[2] + h2_plan[2] + [(o, f_ldes[r]) for r, o in enumerate(f_oracles)]
-                          + [(g_oracle, g_lde_vals)])
-            idx_arrays = h1_plan[3] + h2_plan[3] + [x1] * len(f_oracles) + [x2]
-            n1, n2 = len(h1_plan[2]), len(h2_plan[2])
-            # chain_data holds the only references left, so that each
-            # entry's values go once it is opened
-            del h1_lde, h2_lde, f_ldes, g_lde_vals, f_oracles, g_oracle
-            h1_plan[2].clear()
-            h2_plan[2].clear()
-            h1_proto.intermediate_values = h2_proto.intermediate_values = []
-            gathered = gather_chain_queries(chain_data, idx_arrays)
-            fri_proof_h1 = NaiveFriIop.proof_from_gathered(
-                h1_proto, h1_plan[0], h1_plan[1], gathered[:n1], ops
-            )
-            fri_proof_h2 = NaiveFriIop.proof_from_gathered(
-                h2_proto, h2_plan[0], h2_plan[1], gathered[n1:n1 + n2], ops
-            )
-            f_queries = [_opening(ops, x_h1, v, s) for v, s in gathered[n1 + n2:-1]]
-            g_query = _opening(ops, x_h2, *gathered[-1])
+            with span("query.plan"):
+                h1_plan = NaiveFriIop.query_plan(h1_proto, h1_lde, x_h1)
+                h2_plan = NaiveFriIop.query_plan(h2_proto, h2_lde, x_h2)
+                x1 = torch.tensor([x_h1], dtype=torch.int64, device=self.device)
+                x2 = torch.tensor([x_h2], dtype=torch.int64, device=self.device)
+                chain_data = (h1_plan[2] + h2_plan[2]
+                              + [(o, f_ldes[r]) for r, o in enumerate(f_oracles)]
+                              + [(g_oracle, g_lde_vals)])
+                idx_arrays = h1_plan[3] + h2_plan[3] + [x1] * len(f_oracles) + [x2]
+                n1, n2 = len(h1_plan[2]), len(h2_plan[2])
+                # chain_data holds the only references left, so that each
+                # entry's values go once it is opened
+                del h1_lde, h2_lde, f_ldes, g_lde_vals, f_oracles, g_oracle
+                h1_plan[2].clear()
+                h2_plan[2].clear()
+                h1_proto.intermediate_values = h2_proto.intermediate_values = []
+            with span("query.gather"):
+                gathered = gather_chain_queries(chain_data, idx_arrays)
+            with span("query.assemble"):
+                fri_proof_h1 = NaiveFriIop.proof_from_gathered(
+                    h1_proto, h1_plan[0], h1_plan[1], gathered[:n1], ops
+                )
+                fri_proof_h2 = NaiveFriIop.proof_from_gathered(
+                    h2_proto, h2_plan[0], h2_plan[1], gathered[n1:n1 + n2], ops
+                )
+                f_queries = [_opening(ops, x_h1, v, s) for v, s in gathered[n1 + n2:-1]]
+                g_query = _opening(ops, x_h2, *gathered[-1])
 
         return InstanceProof(
             f_at_z_m=f_at_z_m,
@@ -400,13 +445,15 @@ class Prover:
         if (self.mesh is not None or len(witnesses) == 1 or not props.constraints
                 or not props.boundary_constraints):
             return [self.prove(w) for w in witnesses]
+        with self._recording() as timer:
+            return self._prove_batch(timer, witnesses)
+
+    def _prove_batch(self, timer: SpanRecorder, witnesses: List[Witness]) -> List[InstanceProof]:
         ops = self.ops
         field = self.field
         lanes = range(len(witnesses))
         transcripts = [Blake2sTranscript(field) for _ in witnesses]
         self.last_transcripts = transcripts
-        timer = StageTimer(self.device)
-        self.last_timings = timer
 
         # stage 1, batched: (B, R, T, L) -> (B, R, N_f, L), one batched
         # tree per register
@@ -414,22 +461,22 @@ class Prover:
             w_dev = torch.stack([self.arp.encode_witness(w) for w in witnesses])
             witness_polys = self.arp.calculate_witness_polys(w_dev)
             del w_dev
-            f_ldes = lde(ops, witness_polys, self.lde_factor)
-            f_oracles = [MerkleTree.create(f_ldes[:, r], field) for r in range(f_ldes.shape[1])]
-            f_roots = fetch_roots(f_oracles)  # per register, per lane
+            f_ldes = self._lde(witness_polys)
+            f_oracles, f_roots = self._commit(f_ldes.unbind(1))  # per register, per lane
         f_iop_roots = [[roots[b] for roots in f_roots] for b in lanes]
-        for b, t in enumerate(transcripts):
-            for rb in f_iop_roots[b]:
-                t.commit_bytes(rb)
+        with span("transcript"):
+            for b, t in enumerate(transcripts):
+                for rb in f_iop_roots[b]:
+                    t.commit_bytes(rb)
 
         # G, batched (challenges drawn per proof in the reference order)
         with timer.stage("batch:g_composition+g_oracle"):
             g_poly = self.ali.calculate_g_batch(transcripts, witness_polys)  # (B, D, L)
-            g_lde_vals = lde(ops, g_poly, self.lde_factor)
-            g_oracle = MerkleTree.create(g_lde_vals, field)
-            g_iop_roots = g_oracle.get_roots()
-        for t, rb in zip(transcripts, g_iop_roots):
-            t.commit_bytes(rb)
+            g_lde_vals = self._lde(g_poly)
+            (g_oracle,), (g_iop_roots,) = self._commit([g_lde_vals])
+        with span("transcript"):
+            for t, rb in zip(transcripts, g_iop_roots):
+                t.commit_bytes(rb)
 
         # DEEP, batched
         with timer.stage("batch:deep"):
@@ -445,53 +492,57 @@ class Prover:
 
         # per proof: final roots and coefficients, then the indices
         x_h1, x_h2 = [], []
-        for b, t in enumerate(transcripts):
-            for proto in (protos1[b], protos2[b]):
-                t.commit_bytes(proto.get_final_root())
-                for el in proto.get_final_coefficients():
-                    t.commit_field_element(el)
-            x_h1.append(bytes_to_challenge_index(
-                t.get_challenge_bytes(), h1_lde.shape[1], self.lde_factor))
-            x_h2.append(bytes_to_challenge_index(
-                t.get_challenge_bytes(), h2_lde.shape[1], self.lde_factor))
+        with span("transcript"):
+            for b, t in enumerate(transcripts):
+                for proto in (protos1[b], protos2[b]):
+                    t.commit_bytes(proto.get_final_root())
+                    for el in proto.get_final_coefficients():
+                        t.commit_field_element(el)
+                x_h1.append(bytes_to_challenge_index(
+                    t.get_challenge_bytes(), h1_lde.shape[1], self.lde_factor))
+                x_h2.append(bytes_to_challenge_index(
+                    t.get_challenge_bytes(), h2_lde.shape[1], self.lde_factor))
 
-        # every opening of every proof: one gather over the lanes, one fetch
+        # every opening of every proof: one gather over the lanes, one
+        # fetch; then the host assembly per proof
         with timer.stage("batch:queries"):
-            cosets1 = [NaiveFriIop.coset_walk(protos1[b], x_h1[b]) for b in lanes]
-            cosets2 = [NaiveFriIop.coset_walk(protos2[b], x_h2[b]) for b in lanes]
-            chain_data, idx_arrays = [], []
-            for trees, values, cosets in ((trees1, [h1_lde] + inter1, cosets1),
-                                          (trees2, [h2_lde] + inter2, cosets2)):
-                chain_data += list(zip(trees, values))
-                idx_arrays += [torch.tensor([walk[k] for walk in cosets], dtype=torch.int64,
-                                            device=self.device) for k in range(len(trees))]
-            x1 = torch.tensor(x_h1, dtype=torch.int64, device=self.device)[:, None]
-            x2 = torch.tensor(x_h2, dtype=torch.int64, device=self.device)[:, None]
-            chain_data += [(o, f_ldes[:, r]) for r, o in enumerate(f_oracles)]
-            chain_data.append((g_oracle, g_lde_vals))
-            idx_arrays += [x1] * len(f_oracles) + [x2]
-            gathered = gather_chain_queries(chain_data, idx_arrays)
+            with span("query.plan"):
+                cosets1 = [NaiveFriIop.coset_walk(protos1[b], x_h1[b]) for b in lanes]
+                cosets2 = [NaiveFriIop.coset_walk(protos2[b], x_h2[b]) for b in lanes]
+                chain_data, idx_arrays = [], []
+                for trees, values, cosets in ((trees1, [h1_lde] + inter1, cosets1),
+                                              (trees2, [h2_lde] + inter2, cosets2)):
+                    chain_data += list(zip(trees, values))
+                    idx_arrays += [torch.tensor([walk[k] for walk in cosets], dtype=torch.int64,
+                                                device=self.device) for k in range(len(trees))]
+                x1 = torch.tensor(x_h1, dtype=torch.int64, device=self.device)[:, None]
+                x2 = torch.tensor(x_h2, dtype=torch.int64, device=self.device)[:, None]
+                chain_data += [(o, f_ldes[:, r]) for r, o in enumerate(f_oracles)]
+                chain_data.append((g_oracle, g_lde_vals))
+                idx_arrays += [x1] * len(f_oracles) + [x2]
+            with span("query.gather"):
+                gathered = gather_chain_queries(chain_data, idx_arrays)
 
-        # host assembly per proof
-        n1, n2 = len(trees1), len(trees2)
-        proofs = []
-        for b in lanes:
-            lane = [(v[b], s[:, b]) for v, s in gathered]
-            fri_proofs = [
-                NaiveFriIop.proof_from_gathered(
-                    proto, [proto.l0_commitment] + proto.intermediate_commitments, cosets[b],
-                    part, ops)
-                for proto, cosets, part in ((protos1[b], cosets1, lane[:n1]),
-                                            (protos2[b], cosets2, lane[n1:n1 + n2]))]
-            proofs.append(InstanceProof(
-                f_at_z_m=f_at_z_m[b],
-                f_iop_roots=f_iop_roots[b],
-                g_iop_root=g_iop_roots[b],
-                f_queries=[_opening(ops, x_h1[b], v, s) for v, s in lane[n1 + n2:-1]],
-                g_query=_opening(ops, x_h2[b], *lane[-1]),
-                h1_iop_roots=protos1[b].get_roots(),
-                h2_iop_roots=protos2[b].get_roots(),
-                fri_proof_h1=fri_proofs[0],
-                fri_proof_h2=fri_proofs[1],
-            ))
+            with span("query.assemble"):
+                n1, n2 = len(trees1), len(trees2)
+                proofs = []
+                for b in lanes:
+                    lane = [(v[b], s[:, b]) for v, s in gathered]
+                    fri_proofs = [
+                        NaiveFriIop.proof_from_gathered(
+                            proto, [proto.l0_commitment] + proto.intermediate_commitments,
+                            cosets[b], part, ops)
+                        for proto, cosets, part in ((protos1[b], cosets1, lane[:n1]),
+                                                    (protos2[b], cosets2, lane[n1:n1 + n2]))]
+                    proofs.append(InstanceProof(
+                        f_at_z_m=f_at_z_m[b],
+                        f_iop_roots=f_iop_roots[b],
+                        g_iop_root=g_iop_roots[b],
+                        f_queries=[_opening(ops, x_h1[b], v, s) for v, s in lane[n1 + n2:-1]],
+                        g_query=_opening(ops, x_h2[b], *lane[-1]),
+                        h1_iop_roots=protos1[b].get_roots(),
+                        h2_iop_roots=protos2[b].get_roots(),
+                        fri_proof_h1=fri_proofs[0],
+                        fri_proof_h2=fri_proofs[1],
+                    ))
         return proofs

@@ -406,7 +406,7 @@ def bench_prove(args, dev):
     mid = sorted(range(len(walls)), key=walls.__getitem__)[len(walls) // 2]
     print(f"# {args.workload} VDF 2^{args.log_rows} rows x{lanes}: build {build_s:.3f} s, "
           f"witness ({'native' if model.native else 'python'}) {witness_s:.3f} s, cold "
-          f"{cold:.4f} s, warm {walls} s; stage walls of the median warm run:", file=sys.stderr)
+          f"{cold:.4f} s, warm {walls} s; the spans of the median warm run:", file=sys.stderr)
     print(timings[mid].report(), file=sys.stderr)
     est_ref = reference_prove_estimate_s(prover, t_rows, LDE_FACTOR)
     value = warm / lanes
@@ -419,7 +419,7 @@ def bench_prove(args, dev):
         "reference_estimate_s": est_ref,
         "cold_prove_s": cold, "compile_est_s": cold - warm, "build_s": build_s,
         "witness_s": witness_s, "peak_gib": peak_gib, "stage_walls_synced": True,
-        "stage_walls_s": timings[mid].as_dict(),
+        "stage_walls_s": {r.name: r.seconds for r in timings[mid].records},
         "workload": args.workload, "log_rows": args.log_rows, "batch": lanes,
         "impl": args.impl, "reps": args.reps, "verified": verified,
         **sample_fields(walls, "s a call"),

@@ -33,14 +33,14 @@ def gib(nbytes: int) -> str:
 
 @contextlib.contextmanager
 def stage_peaks(peaks: list, echo=None):
-    """While active, every stage of a `profiling.StageTimer` resets the
+    """While active, every stage of a `profiling.SpanRecorder` resets the
     device's peak memory statistics at its start and appends at its end
     (name, max allocated, max reserved, allocated at the end), in bytes,
     to `peaks`; echo(line), if given, is called at each stage's start and
     end."""
-    from hodor_tpu_torch.profiling import StageTimer
+    from hodor_tpu_torch.profiling import SpanRecorder
 
-    plain = StageTimer.stage
+    plain = SpanRecorder.stage
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -57,9 +57,9 @@ def stage_peaks(peaks: list, echo=None):
             echo(f"  stage {name}: {self.records[-1].seconds:.3f} s, peak allocated {gib(a)}, "
                  f"peak reserved {gib(r)}, allocated at its end {gib(end)}")
 
-    StageTimer.stage = stage
+    SpanRecorder.stage = stage
     yield peaks
-    StageTimer.stage = plain
+    SpanRecorder.stage = plain
 
 
 def table_bytes(tables: dict) -> list:

@@ -14,14 +14,16 @@ prove, then one warm prove without the profiler and one under
     `witness="auto"` takes at this length) and `ARPInstance.encode_witness`
     alone (the packed array's view and padding, the host->device copy,
     the to-Montgomery mul), synchronized;
-  - the warm prove's wall without and with the profiler, and the
-    profiled run's stage walls;
+  - the warm prove's wall without and with the profiler;
   - device busy time: the union of the CUDA kernel, memcpy and memset
     intervals the profiler recorded, and the idle share
     1 - busy / wall against both walls (the profiler adds host time, so
     the share against the profiled wall is an upper bound);
   - device time and launch count per kernel group (each body of
-    ntt_level its own) and the top kernels.
+    ntt_level its own) and the top kernels;
+  - beside them, the span tree of the warm prove without the profiler
+    (`Prover.last_timings.report()`: the names the benchmark's
+    program_span metrics read, each with its self time).
 Needs a CUDA device.
 """
 
@@ -130,6 +132,7 @@ def main(argv) -> int:
     run()
     torch.cuda.synchronize()
     wall_off = time.perf_counter() - t0
+    spans = prover.last_timings
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -138,7 +141,6 @@ def main(argv) -> int:
     what = "prove" if lanes == 1 else f"prove_batch of {lanes} lanes"
     print(f"warm {what} 2^{LOG_ROWS} rows: {wall_off:.3f} s without the profiler, "
           f"{wall_on:.3f} s under it")
-    print(prover.last_timings.report())
 
     by_name = collections.defaultdict(lambda: [0, 0.0])
     intervals = []
@@ -161,6 +163,8 @@ def main(argv) -> int:
     print("top device kernels:")
     for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"  {d / 1e3:9.2f} ms {n:6d}x  {name}")
+    print("spans of the warm prove without the profiler (host seconds; the stages synchronize):")
+    print(spans.report())
     return 0
 
 

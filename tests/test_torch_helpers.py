@@ -2,7 +2,7 @@
 on the same inputs, on CPU tensors: ntt.evaluate_at_domain_for_degree_one,
 ntt.bit_reverse_indices, ntt.matmul.intt_matmul, field.ops_for,
 merkle.blake2s.compress, utils.native.available, checkpoint.ProveCheckpoint.clear,
-profiling.StageTimer.as_dict and LimbOps.assert_nonzero. Tolerance 0."""
+profiling.SpanRecorder.as_dict and LimbOps.assert_nonzero. Tolerance 0."""
 
 import os
 import random
@@ -29,7 +29,7 @@ from hodor_tpu_torch.field import to_numpy_limbs
 from hodor_tpu_torch.merkle.blake2s import compress
 from hodor_tpu_torch.ntt import bit_reverse_indices, evaluate_at_domain_for_degree_one
 from hodor_tpu_torch.ntt.matmul import intt_matmul
-from hodor_tpu_torch.profiling import StageRecord, StageTimer
+from hodor_tpu_torch.profiling import Span, SpanRecorder
 from hodor_tpu_torch.utils import native
 
 torch.set_num_threads(1)
@@ -172,14 +172,14 @@ def test_checkpoint_clear_empties_the_directory(tmp_path):
 def test_stage_timer_as_dict():
     """Seconds by stage name, repeated names summed, as hodor_tpu's."""
     records = [("a", 0.5), ("b", 0.25), ("a", 1.0), ("c(resumed)", 0.125)]
-    timer, jtimer = StageTimer("cpu"), jprofiling.StageTimer()
-    timer.records = [StageRecord(n, t) for n, t in records]
+    timer, jtimer = SpanRecorder("cpu"), jprofiling.StageTimer()
+    timer.spans = [Span(n, 0, int(t * 1e9), stage=True) for n, t in records]
     jtimer.records = [jprofiling.StageRecord(n, t) for n, t in records]
     assert timer.as_dict() == jtimer.as_dict() == {"a": 1.5, "b": 0.25, "c(resumed)": 0.125}
     with timer.stage("d"):
         pass
     assert list(timer.as_dict()) == ["a", "b", "c(resumed)", "d"]
-    assert StageTimer("cpu").as_dict() == {}
+    assert SpanRecorder("cpu").as_dict() == {}
 
 
 @pytest.mark.parametrize("field", [F257, F_STARK], ids=["F257", "F_STARK"])
