@@ -13,9 +13,14 @@ Phases, each reported on its own line:
      dft_reduce alone, and mont_pow, the static power in mont_mul.cu)
      against its plain PyTorch version on the card, on seeded random
      canonical inputs at the shapes the prove gives it; ntt_level in its
-     three bodies (tensor cores, butterflies in registers, limbs on the
-     integer pipe: the one the wrapper picks against the plain version,
-     the others that take the shape beside it) and dft_reduce in both of
+     three level bodies (tensor cores, butterflies in registers, limbs on
+     the integer pipe: the one the wrapper picks against the plain version,
+     the others that take the shape beside it), its shared body (radix-2
+     stages in shared memory) at the passes of 2^20- to 2^23-point
+     transforms against its plain version, and the whole transforms
+     (ntt, intt) of 2^20 to 2^23 points, two shared passes each, against
+     the radix plan's mma levels (`plain_ms` there is the radix plan's
+     time), and dft_reduce in both of
      its bodies on the same inputs, timed in turn, dft_reduce also
      on ragged shapes, a 64-bit field and a random W that is no fold of a
      DFT matrix; s8dot at a bare launch's shape and at the fused level's
@@ -68,7 +73,7 @@ Phases, each reported on its own line:
      bytes and lane 1 its own sequential prove, lane 0 must verify and
      lane 1 be rejected; the warm batch's launches per kernel beside phase
      5's warm single prove: fri_fold and blake2s as often as in the single
-     prove, no kernel B times as often, the tensor-core body of ntt_level
+     prove, no kernel B times as often, the shared body of ntt_level
      run; the mont_mul bodies of both and the body of the G and DEEP
      products by a per-lane challenge;
   8b. B = 4 distinct lanes at 2^18 rows, each byte-equal to its
@@ -80,7 +85,8 @@ Phases, each reported on its own line:
      tree's;
  10. the quadratic VDF over F_BLS at 2^20 rows, lde factor 16, FRI to a
      constant, native witness, as phase 5: every ntt_level launch on the
-     butterfly body (radix 4, 2 last), none on another;
+     shared body (transforms from 2^8 points) or the butterfly body (the
+     radix-4 levels below), none on another;
  11. the quadratic VDF over F_P63 at 2^20 rows, lde factor 8, FRI to
      degree 4 (fri_final_degree_plus_one = 4), native witness, the same;
  12. over F_STARK at lde factor 8, the same for the six-register instance
@@ -161,8 +167,9 @@ LOG_ROWS_LARGE = 22
 
 # name -> (source, the TPU kernel it replaces). mont_mul.cu has two
 # entries, hodor_mont_mul and hodor_mont_pow (x^e in one launch, counted
-# with mont_mul); ntt_level.cu has three bodies, "mma" (the contraction of
-# csrc/byte_plane_mma.cuh on the int8 tensor cores), "butterfly" and "limb";
+# with mont_mul); ntt_level.cu has four bodies, "mma" (the contraction of
+# csrc/byte_plane_mma.cuh on the int8 tensor cores), "butterfly", "limb"
+# and "shared" (the passes of the 16-limb fields' transforms);
 # dft_reduce.cu has two, "mma" and "dp4a", and the entry hodor_s8dot.
 KERNEL_INFO = {
     "mont_mul": ("hodor_tpu_torch/csrc/mont_mul.cu", "hodor_tpu/field/pallas_kernels.py:283"),
@@ -398,6 +405,7 @@ def phase_kernels(dev):
                tw[:, :20].contiguous(), reps=20)
     level_case("S=128 C=1 B=1", x[:1, :, :1].contiguous(), 128, False, None, reps=20)
     level_case("S=32 C=5 B=7 scalar", x[:7, :32, :5].contiguous(), 32, False, ninv, reps=20)
+    shared_cases(field, ops, gen, dev, compare)
 
     # the FRI fold at the first rounds of the h1 and h2 ladders of a
     # 2^20-row prove (2^24 and 2^25 values), lo and hi the two halves of
@@ -577,6 +585,78 @@ def addsub_body_cases(dev, field, compare, a, b) -> None:
     for body in K.ADDSUB_BODIES:
         if not any(K.addsub_body(x, y) == body for _, x, y in cases):
             raise AssertionError(f"addsub at {field.name}: no case takes the {body} body")
+
+
+def radix_plan(fn):
+    """fn run under the radix-128 plan of ntt/matmul.py (the shared plan's
+    threshold out of reach), for holding the two plans side by side."""
+    from hodor_tpu_torch.ntt import matmul as M
+
+    def run():
+        keep = M.SHARED_MIN_POINTS
+        M.SHARED_MIN_POINTS = 1 << 40
+        try:
+            return fn()
+        finally:
+            M.SHARED_MIN_POINTS = keep
+    return run
+
+
+def shared_cases(field, ops, gen, dev, compare):
+    """Phase 3's cases of the shared body of ntt_level at the main path's
+    shapes: the two passes of a 2^20-point transform of two rows (the
+    columns with the four-step power twiddle; the rows with 1/N, written
+    in natural order), the 2^11-point pass of 2^22 and the split 2^12-point
+    pass of 2^23, and whole transforms (ntt, intt) of 2^20 to 2^23 points
+    beside the radix plan's mma levels; against the body's plain version
+    on the card. The bound: the bytes of one read and one write, or the
+    int8 operations of log2 S radix-2 levels (stark_bench/roofline.py's
+    yardstick)."""
+    import torch
+
+    from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.ntt import intt, ntt
+    from hodor_tpu_torch.ntt import matmul as M
+
+    def radix2_ops(points, size):
+        return points * (size.bit_length() - 1) * ops_ntt_level(2)
+
+    def pass_case(case, xv, tw, out, inverse=False):
+        size = xv.shape[1]
+        roots = M.pass_roots(ops, size, inverse)
+        before = K.ntt_level_body_counts["shared"]
+        compare("ntt_level", f"{case} [shared]",
+                lambda: K.ntt_level_shared(field, xv, roots, tw, out=out),
+                lambda: K.ntt_level_shared_plain(field, xv, roots, tw),
+                nbytes(xv), radix2_ops(xv.numel() // field.n16, size), "int8", reps=10,
+                plain_reps=1)
+        if K.ntt_level_body_counts["shared"] == before:
+            raise AssertionError(f"ntt_level {case}: the shared body did not launch")
+
+    n = 1 << 20
+    x = random_canonical(field, (2, 1024, 1024), gen, dev)
+    out = torch.empty_like(x)
+    pass_case("pass S=1024 C=1024 B=2 (2^20 columns, power twiddle)", x,
+              M.power_twiddles(ops, n, False), out)
+    pass_case("pass S=1024 C=1024 B=2 (2^20 rows, 1/N, natural order)", x.transpose(1, 2),
+              ops.const(field.inv(n)), out.view(2, 1024, 1024, field.n16), inverse=True)
+    del x, out
+    for log_n, size, cols in ((22, 2048, 2048), (23, 4096, 2048)):
+        xv = random_canonical(field, (1, size, cols), gen, dev)
+        pass_case(f"pass S={size} C={cols} B=1 (2^{log_n} columns, power twiddle)", xv,
+                  M.power_twiddles(ops, 1 << log_n, False), torch.empty_like(xv))
+        del xv
+    for log_n, bsz in ((20, 2), (21, 1), (22, 1), (23, 1)):
+        xv = random_canonical(field, (bsz, 1 << log_n), gen, dev)
+        for name, fn in (("ntt", ntt), ("intt", intt)):
+            before = K.ntt_level_body_counts["shared"]
+            compare("ntt_level", f"{name} 2^{log_n} B={bsz} (two passes) [shared]",
+                    lambda: fn(ops, xv), radix_plan(lambda: fn(ops, xv)), nbytes(xv),
+                    radix2_ops(xv.numel() // field.n16, 1 << log_n), "int8", reps=5,
+                    plain_reps=1)
+            if K.ntt_level_body_counts["shared"] - before < 2:
+                raise AssertionError(f"{name} 2^{log_n}: the shared body did not launch")
+        del xv
 
 
 def worst_case(field, shape, device):
@@ -853,7 +933,7 @@ def require_launched(path: str, counts, names) -> None:
 
 
 def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_factor: int = 16,
-                  fri_final_degree_plus_one: int = 1, ntt_bodies=("mma", "butterfly", "limb"),
+                  fri_final_degree_plus_one: int = 1, ntt_bodies=("shared", "butterfly", "limb"),
                   forms: bool = False, per_stage: bool = False):
     """Set-up, cold and warm prove, verify and a tampered proof for one
     instance: into_arp() gives (witness, props); native: whether the
@@ -1205,8 +1285,8 @@ def phase_batch(dev, single, lanes_b: int = 2):
              counts[k] >= lanes_b * single["counts"][k]]
     if times:
         raise AssertionError(f"{label}: {times} launched B times as often as in one prove")
-    if ntt_bodies["mma"] == 0:
-        raise AssertionError(f"{label}: the tensor-core body of ntt_level did not run")
+    if ntt_bodies["shared"] == 0:
+        raise AssertionError(f"{label}: the shared body of ntt_level did not run")
     # the body of G's and DEEP's products by a per-lane challenge (B, 1, L)
     # at this size: G's constraint values (B, D, L) and DEEP's (B, N_f, L)
     n16 = F_STARK.n16
@@ -1772,7 +1852,7 @@ def main() -> int:
     # when it returns
     off_ground = (
         ("F_BLS quadratic VDF 2^20, lde 16", F_BLS, VDF(F_BLS, 1, 2, rows).into_arp,
-         dict(ntt_bodies=("butterfly",))),
+         dict(ntt_bodies=("shared", "butterfly"))),
         ("F_P63 quadratic VDF 2^20, lde 8, FRI to degree 4", F_P63,
          VDF(F_P63, 1, 2, rows).into_arp,
          dict(lde_factor=8, fri_final_degree_plus_one=4, ntt_bodies=("butterfly",))),

@@ -181,6 +181,172 @@ __device__ __forceinline__ void mont_mul_words(uint32_t (&r)[NW], const uint32_t
   for (int i = 0; i < NW; ++i) r[i] = ge ? d[i] : lo[i];
 }
 
+// Carry-chain forms for 256-bit moduli (NW = 8) with p < 2^255, as every
+// 16-limb field of the port has (LimbOps keeps num_bits <= 255): the same
+// canonical results as mod_add, mod_sub and mont_mul_words, with the
+// carries in the PTX carry flag (add.cc / addc, mad.lo.cc / madc.hi) in
+// place of 64-bit sums, about half the instructions. Each chain is one asm
+// statement, so nothing can come between a carry's producer and consumer.
+
+// t[0..8] += a * bi. Exact where the sum stays below 2^288; the last
+// high product's carry is 0 there.
+__device__ __forceinline__ void mac_row8(uint32_t (&t)[9], const uint32_t (&a)[8], uint32_t bi) {
+  asm("mad.lo.cc.u32 %0, %9, %17, %0;\n\t"
+      "madc.lo.cc.u32 %1, %10, %17, %1;\n\t"
+      "madc.lo.cc.u32 %2, %11, %17, %2;\n\t"
+      "madc.lo.cc.u32 %3, %12, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %13, %17, %4;\n\t"
+      "madc.lo.cc.u32 %5, %14, %17, %5;\n\t"
+      "madc.lo.cc.u32 %6, %15, %17, %6;\n\t"
+      "madc.lo.cc.u32 %7, %16, %17, %7;\n\t"
+      "addc.u32 %8, %8, 0;\n\t"
+      "mad.hi.cc.u32 %1, %9, %17, %1;\n\t"
+      "madc.hi.cc.u32 %2, %10, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %17, %3;\n\t"
+      "madc.hi.cc.u32 %4, %12, %17, %4;\n\t"
+      "madc.hi.cc.u32 %5, %13, %17, %5;\n\t"
+      "madc.hi.cc.u32 %6, %14, %17, %6;\n\t"
+      "madc.hi.cc.u32 %7, %15, %17, %7;\n\t"
+      "madc.hi.u32 %8, %16, %17, %8;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+        "+r"(t[7]), "+r"(t[8])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+        "r"(bi));
+}
+
+// t[0..8] += m * p for a p whose words 1 to 5 are 0: three products, the
+// carry carried through the zero words by adds.
+__device__ __forceinline__ void mac_row8_sparse(uint32_t (&t)[9], const uint32_t* p, uint32_t m) {
+  asm("mad.lo.cc.u32 %0, %12, %9, %0;\n\t"
+      "addc.cc.u32 %1, %1, 0;\n\t"
+      "addc.cc.u32 %2, %2, 0;\n\t"
+      "addc.cc.u32 %3, %3, 0;\n\t"
+      "addc.cc.u32 %4, %4, 0;\n\t"
+      "addc.cc.u32 %5, %5, 0;\n\t"
+      "madc.lo.cc.u32 %6, %12, %10, %6;\n\t"
+      "madc.lo.cc.u32 %7, %12, %11, %7;\n\t"
+      "addc.u32 %8, %8, 0;\n\t"
+      "mad.hi.cc.u32 %1, %12, %9, %1;\n\t"
+      "addc.cc.u32 %2, %2, 0;\n\t"
+      "addc.cc.u32 %3, %3, 0;\n\t"
+      "addc.cc.u32 %4, %4, 0;\n\t"
+      "addc.cc.u32 %5, %5, 0;\n\t"
+      "addc.cc.u32 %6, %6, 0;\n\t"
+      "madc.hi.cc.u32 %7, %12, %10, %7;\n\t"
+      "madc.hi.u32 %8, %12, %11, %8;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+        "+r"(t[7]), "+r"(t[8])
+      : "r"(p[0]), "r"(p[6]), "r"(p[7]), "r"(m));
+}
+
+// r = t - p if t >= p, else t (t < 2p).
+__device__ __forceinline__ void reduce_once8(uint32_t (&r)[8], const uint32_t (&t)[8],
+                                             const uint32_t* p) {
+  uint32_t d[8], keep;
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, %25, %25;"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]),
+        "=r"(d[7]), "=r"(keep)
+      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]), "r"(t[6]), "r"(t[7]),
+        "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "r"(p[4]), "r"(p[5]), "r"(p[6]), "r"(p[7]),
+        "r"(0u));
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] = keep ? t[i] : d[i];
+}
+
+// r = a + b mod p; a, b < p < 2^255, so a + b < 2^256.
+__device__ __forceinline__ void mod_add8(uint32_t (&r)[8], const uint32_t (&a)[8],
+                                         const uint32_t (&b)[8], const FieldConsts& fc) {
+  uint32_t s[8];
+  asm("add.cc.u32 %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32 %7, %15, %23;"
+      : "=r"(s[0]), "=r"(s[1]), "=r"(s[2]), "=r"(s[3]), "=r"(s[4]), "=r"(s[5]), "=r"(s[6]),
+        "=r"(s[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+        "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  reduce_once8(r, s, fc.p);
+}
+
+// r = a - b mod p; a, b < p.
+__device__ __forceinline__ void mod_sub8(uint32_t (&r)[8], const uint32_t (&a)[8],
+                                         const uint32_t (&b)[8], const FieldConsts& fc) {
+  uint32_t d[8], borrow, m[8];
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, %25, %25;"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]),
+        "=r"(d[7]), "=r"(borrow)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+        "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]),
+        "r"(0u));
+#pragma unroll
+  for (int i = 0; i < 8; ++i) m[i] = fc.p[i] & borrow;  // p where a < b, else 0
+  asm("add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %7, %15;"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7])
+      : "r"(m[0]), "r"(m[1]), "r"(m[2]), "r"(m[3]), "r"(m[4]), "r"(m[5]), "r"(m[6]), "r"(m[7]));
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] = d[i];
+}
+
+// r = a * b * 2^-256 mod p by CIOS on carry chains; a, b < p < 2^255, r
+// canonical. The running t stays below 2p < 2^256 between rows and below
+// 2^288 inside one, so each row's chains end without a carry. ZERO_WORDS as
+// mont_mul_words: p's words 1 to 5 all 0 takes the three-product reduction.
+template <uint32_t ZERO_WORDS = 0>
+__device__ __forceinline__ void mont_mul8(uint32_t (&r)[8], const uint32_t (&a)[8],
+                                          const uint32_t (&b)[8], const FieldConsts& fc) {
+  uint32_t t[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mac_row8(t, a, b[i]);
+    const uint32_t m = t[0] * fc.pinv0;
+    if constexpr ((ZERO_WORDS & 0x3Eu) == 0x3Eu) {
+      mac_row8_sparse(t, fc.p, m);
+    } else {
+      uint32_t p[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p[j] = fc.p[j];
+      mac_row8(t, p, m);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = t[j + 1];  // t[0] is 0: divide by 2^32
+    t[8] = 0;
+  }
+  uint32_t u[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) u[i] = t[i];
+  reduce_once8(r, u, fc.p);
+}
+
 // u = t * 2^(-32 NW) mod p for the integer t < radix * p^2 held in the
 // low 2 NW words of t (t[2 NW] must be 0; it takes the carry of t + m p):
 // one word-serial Montgomery reduction, then the level's subtract chain.

@@ -1,4 +1,5 @@
-// One radix-S DFT level of the four-step NTT (S <= 128):
+// One radix-S DFT level of the four-step NTT (S <= 128; to 2^12 in the
+// shared body):
 //   out[b, k, c] = mont_reduce(sum_j W[k, j] * x[b, j, c]) (* tw)
 // with W[k, j] = w^(kj) in Montgomery form, so the reduced sum is the
 // DFT in Montgomery form. The optional twiddle is a Montgomery factor
@@ -6,8 +7,35 @@
 // scalar (the inverse transform's 1/N).
 //
 // Replaces: hodor_tpu/field/pallas_kernels.py pallas_ntt_level
-// (_ntt_level_kernel). Three bodies compute the same canonical limbs; the
-// wrapper (field/kernels.py ntt_level_body) picks one from n16 and S:
+// (_ntt_level_kernel). Four bodies compute the same canonical limbs. The
+// shared body is a new design that takes the TPU kernel's place on the
+// 16-limb fields' transforms from 2^8 points (ntt/matmul.py
+// shared_passes); of the other three, the wrapper (field/kernels.py
+// ntt_level_body) picks one from n16 and S:
+//
+// hodor_ntt_level_pass, the shared body, for n16 = 16: one DFT of S = 2^1
+// to 2^12 points per column as radix-2 decimation-in-frequency stages on
+// canonical values, the exchanges between stages in shared memory, then
+// the four-step twiddle w_N^(k c) or the inverse's 1/N, written in natural
+// order at any strides (the caller's out=, the LDE's rows at stride
+// factor): a transform of 2^13 to 2^24 points is two such passes, the
+// (n1, n2) reshape's columns, then its rows. Bound on the H100: 32-bit
+// integer multiply-adds, (S/2) log2 S Montgomery products per S outputs
+// (the roofline's bytes, one read and one write a pass, come to a quarter
+// of the time: at 2^20 the two passes take 0.37 ms against 0.09 ms of
+// copies). Design: a block holds 2^11 points (64 KB, three blocks a
+// multiprocessor; a 2^12-point column takes two blocks, each doing the
+// first stage on its loads and keeping the sums or the differences), a
+// thread does 2^10 / 256 butterflies a stage; the arithmetic is the carry-
+// chain forms of field.cuh (mod_add8, mod_sub8, mont_mul8), whose
+// reduction skips p's zero words where the host finds them (words 1 to 5
+// of 2^251 + 17 2^192 + 1: 3 products a row, not 8); it reads roots of
+// unity (S/2 entries, packed) and two twiddle tables of about sqrt(N)
+// entries, no DFT matrix. Why the DFT-matrix bodies are off the F_STARK
+// main path: 2 S P^2 int8 operations an output make the radix-128 plan's
+// three levels at 2^20 cost 0.347 ms at the card's full int8 rate alone,
+// against the radix-2 count's 0.043; they ran at 1.47 ms, the shared
+// passes at 0.37 (PERF.md section 6).
 //
 // hodor_ntt_level_mma, for 256-bit fields at S = 32, 64, 128: the TPU
 // kernel's byte-plane algebra on the int8 tensor cores
@@ -500,6 +528,175 @@ static int dispatch_ntt_level_butterfly(int32_t* out, const int32_t* x, const in
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------ shared body
+
+constexpr int kPassThreads = 256;
+constexpr int kPassLogPoints = 11;  // points of a block's columns in shared memory (64 KB)
+
+// int32 strides of a pass's operands: x by batch, column and point j; out
+// by batch, column and frequency k.
+struct PassStrides {
+  long long xb, xc, xj, ob, oc, ok;
+};
+
+// A point in shared memory: words 0-3 in lo[e], 4-7 in hi[e], so that a
+// warp's 16-byte accesses to neighbouring points are free of conflicts.
+__device__ __forceinline__ void put_point(uint4* lo, uint4* hi, int e, const uint32_t (&v)[8]) {
+  lo[e] = make_uint4(v[0], v[1], v[2], v[3]);
+  hi[e] = make_uint4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void get_point(const uint4* lo, const uint4* hi, int e,
+                                          uint32_t (&v)[8]) {
+  const uint4 a = lo[e], b = hi[e];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// A table entry of packed words (8 int32 words an element, 32 bytes).
+__device__ __forceinline__ void load_packed(const int32_t* p, uint32_t (&v)[8]) {
+  const uint4 a = reinterpret_cast<const uint4*>(p)[0], b = reinterpret_cast<const uint4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// One S-point DFT per column m = b C + c, S = 2^log_sb (2^(log_sb + 1)
+// with SPLIT), by radix-2 decimation-in-frequency stages in shared memory.
+// A block holds G = 2^log_g columns, point j of column g at j G + g. With
+// SPLIT the first stage runs on the loads: block 2 i + q reads all S
+// points of its columns and keeps the sums (q = 0) or the differences
+// times w^j (q = 1), the S/2-point DFTs of the even and of the odd
+// frequencies. roots: w^e for e < S/2 as packed words. Each output k is
+// multiplied by the scalar tw (tw_mode 1) or by w_N^(k c) = tw[kc mod
+// 2^tw_shift] tw_hi[kc >> tw_shift] (tw_mode 3; packed words), then
+// stored at out + b ob + c oc + k ok.
+template <bool SPLIT, uint32_t ZW>
+__global__ void __launch_bounds__(kPassThreads, 3)
+    ntt_level_butterfly_kernel_pass(int32_t* __restrict__ out, const int32_t* __restrict__ x,
+                                    const int32_t* __restrict__ roots, int log_sb, int log_g,
+                                    long long total_m, long long cols, PassStrides st,
+                                    int tw_mode, const int32_t* __restrict__ tw,
+                                    const int32_t* __restrict__ tw_hi, int tw_shift,
+                                    FieldConsts fc) {
+  constexpr int NW = 8;
+  extern __shared__ uint4 tile[];
+  const int points = 1 << (log_sb + log_g), gmask = (1 << log_g) - 1;
+  uint4* lo = tile;
+  uint4* hi = tile + points;
+  const int q = SPLIT ? (int)(blockIdx.x & 1) : 0;
+  const long long m0 = (long long)(SPLIT ? blockIdx.x >> 1 : blockIdx.x) << log_g;
+
+  for (int e = threadIdx.x; e < points; e += kPassThreads) {
+    const long long m = m0 + (e & gmask);
+    const int j = e >> log_g;
+    uint32_t v[NW];
+    if (m < total_m) {
+      const long long b = m / cols, c = m - b * cols;
+      const int32_t* src = x + b * st.xb + c * st.xc + j * st.xj;
+      load_words_v4<NW>(src, v);
+      if constexpr (SPLIT) {
+        uint32_t u[NW], d[NW];
+        load_words_v4<NW>(src + (st.xj << log_sb), u);
+        if (q == 0) {
+          mod_add8(d, v, u, fc);
+        } else {
+          mod_sub8(d, v, u, fc);
+          if (j != 0) {
+            load_packed(roots + (long long)j * NW, u);
+            mont_mul8<ZW>(d, d, u, fc);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < NW; ++r) v[r] = d[r];
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < NW; ++r) v[r] = 0;
+    }
+    put_point(lo, hi, e, v);
+  }
+  __syncthreads();
+
+  for (int lh = log_sb - 1; lh >= 0; --lh) {
+    const int root_shift = log_sb - 1 - lh + (SPLIT ? 1 : 0);
+    for (int u = threadIdx.x; u < points / 2; u += kPassThreads) {
+      const int r = u >> log_g, o = r & ((1 << lh) - 1);
+      const int ea = ((((r >> lh) << (lh + 1)) | o) << log_g) | (u & gmask);
+      const int eb = ea + (1 << (lh + log_g));
+      uint32_t a[NW], b[NW], s[NW];
+      get_point(lo, hi, ea, a);
+      get_point(lo, hi, eb, b);
+      mod_add8(s, a, b, fc);
+      mod_sub8(b, a, b, fc);
+      if (o != 0) {
+        load_packed(roots + ((long long)o << root_shift) * NW, a);
+        mont_mul8<ZW>(b, b, a, fc);
+      }
+      put_point(lo, hi, ea, s);
+      put_point(lo, hi, eb, b);
+    }
+    __syncthreads();
+  }
+
+  for (int e = threadIdx.x; e < points; e += kPassThreads) {
+    const long long m = m0 + (e & gmask);
+    if (m >= total_m) continue;
+    const long long k =
+        ((long long)(__brev((unsigned)(e >> log_g)) >> (32 - log_sb)) << (SPLIT ? 1 : 0)) + q;
+    const long long b = m / cols, c = m - b * cols;
+    uint32_t v[NW], t[NW];
+    get_point(lo, hi, e, v);
+    if (tw_mode == 1) {
+      load_words_v4<NW>(tw, t);
+      mont_mul8<ZW>(v, v, t, fc);
+    } else if (tw_mode == 3) {
+      const long long kc = k * c;
+      load_packed(tw + (kc & ((1LL << tw_shift) - 1)) * NW, t);
+      mont_mul8<ZW>(v, v, t, fc);
+      load_packed(tw_hi + (kc >> tw_shift) * NW, t);
+      mont_mul8<ZW>(v, v, t, fc);
+    }
+    store_words_v4<NW>(out + b * st.ob + c * st.oc + k * st.ok, v);
+  }
+}
+
+template <bool SPLIT, uint32_t ZW>
+static int launch_ntt_level_pass(int32_t* out, const int32_t* x, const int32_t* roots,
+                                 int log_sb, long long total_m, long long cols,
+                                 const PassStrides& st, int tw_mode, const int32_t* tw,
+                                 const int32_t* tw_hi, int tw_shift, const FieldConsts& fc,
+                                 cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(ntt_level_butterfly_kernel_pass<SPLIT, ZW>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (2 << kPassLogPoints) * (int)sizeof(uint4));
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  // as many columns a block as fill its 2^11 points, no more than there are
+  int log_g = kPassLogPoints - log_sb;
+  while (log_g > 0 && (1LL << (log_g - 1)) >= total_m) --log_g;
+  const long long blocks = ((total_m + (1LL << log_g) - 1) >> log_g) * (SPLIT ? 2 : 1);
+  const int smem = (2 << (log_sb + log_g)) * (int)sizeof(uint4);
+  ntt_level_butterfly_kernel_pass<SPLIT, ZW><<<(unsigned)blocks, kPassThreads, smem, stream>>>(
+      out, x, roots, log_sb, log_g, total_m, cols, st, tw_mode, tw, tw_hi, tw_shift, fc);
+  return (int)cudaGetLastError();
+}
+
+template <uint32_t ZW>
+static int dispatch_ntt_level_pass(int32_t* out, const int32_t* x, const int32_t* roots,
+                                   int log_size, long long total_m, long long cols,
+                                   const PassStrides& st, int tw_mode, const int32_t* tw,
+                                   const int32_t* tw_hi, int tw_shift, const FieldConsts& fc,
+                                   cudaStream_t s) {
+  if (log_size > kPassLogPoints)
+    return launch_ntt_level_pass<true, ZW>(out, x, roots, log_size - 1, total_m, cols, st,
+                                           tw_mode, tw, tw_hi, tw_shift, fc, s);
+  return launch_ntt_level_pass<false, ZW>(out, x, roots, log_size, total_m, cols, st, tw_mode,
+                                          tw, tw_hi, tw_shift, fc, s);
+}
+
 }  // namespace hodor
 
 extern "C" int hodor_ntt_level(int n16, int32_t* out, const int32_t* x, const int32_t* w,
@@ -554,4 +751,33 @@ extern "C" int hodor_ntt_level_butterfly(int n16, int32_t* out, const int32_t* x
                                                    hodor::make_field_consts(8, p_words, pinv0),
                                                    s);
   return (int)cudaErrorInvalidValue;
+}
+
+// One pass of the shared body over (batch, S, cols) points of x, S = 2^log_size
+// with 1 <= log_size <= 12, into out (strides: x by batch, column, point;
+// out by batch, column, frequency; int32 units, multiples of 4, every
+// pointer 16-byte aligned). roots: (S/2, 8) packed words of w^e; tw_mode 0
+// none, 1 the (16,) limbs of one scalar at tw, 3 the packed power tables
+// tw and tw_hi (w_N^(k c)); zero_words: bit j set where p's word j is 0.
+// Takes n16 = 16.
+extern "C" int hodor_ntt_level_pass(int n16, int32_t* out, const int32_t* x,
+                                    const int32_t* roots, long long batch, int log_size,
+                                    long long cols, const long long* strides, int tw_mode,
+                                    const int32_t* tw, const int32_t* tw_hi, int tw_shift,
+                                    const uint32_t* p_words, uint32_t pinv0, uint32_t zero_words,
+                                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n16 != 16 || batch < 1 || cols < 1 || log_size < 1 ||
+      log_size > hodor::kPassLogPoints + 1 || (tw_mode != 0 && tw_mode != 1 && tw_mode != 3))
+    return (int)cudaErrorInvalidValue;
+  const hodor::PassStrides st{strides[0], strides[1], strides[2],
+                              strides[3], strides[4], strides[5]};
+  const hodor::FieldConsts fc = hodor::make_field_consts(8, p_words, pinv0);
+  const long long total_m = batch * cols;
+  constexpr uint32_t kSparse = 0x3Eu;  // words 1-5 zero: 2^251 + 17 2^192 + 1 among others
+  if ((zero_words & kSparse) == kSparse)
+    return hodor::dispatch_ntt_level_pass<kSparse>(out, x, roots, log_size, total_m, cols, st,
+                                                   tw_mode, tw, tw_hi, tw_shift, fc, s);
+  return hodor::dispatch_ntt_level_pass<0u>(out, x, roots, log_size, total_m, cols, st, tw_mode,
+                                            tw, tw_hi, tw_shift, fc, s);
 }

@@ -21,13 +21,17 @@ the wrapper picks one from the field and the radix (`dft_reduce_body`),
 and `dft_reduce_body_counts` counts each. `mont_pow` is a second entry of
 mont_mul.cu: x^e for a static exponent in one launch (the one-program
 exponent loop of hodor_tpu/field/limbs.py inv_fermat); its launches count
-as mont_mul's. `ntt_level` has three bodies in ntt_level.cu, the
+as mont_mul's. `ntt_level` has four bodies in ntt_level.cu: the
 byte-plane contraction on the int8 tensor cores ("mma",
 csrc/byte_plane_mma.cuh) for S = 32-128 at 16 limbs, radix-2 butterflies
 on canonical values in registers ("butterfly") for S = 2, 4, 8, and the
-limb arithmetic on the integer pipe ("limb") for the rest; the wrapper picks
-one from the field and the radix (`ntt_level_body`), and
-`ntt_level_body_counts` counts each beside their sum in `launch_counts`.
+limb arithmetic on the integer pipe ("limb") for the rest, which
+`ntt_level` picks from the field and the radix (`ntt_level_body`); and
+radix-2 stages in shared memory ("shared", S = 2 to 2^12 at 16 limbs,
+entry `ntt_level_shared`), which reads roots of unity instead of a DFT
+matrix and writes at any strides: the passes of ntt/matmul.py's shared
+plan. `ntt_level_body_counts` counts each beside their sum in
+`launch_counts`.
 `mont_mul` and `addsub` have three bodies each, picked from the collapsed
 layout by one rule ("flat", "grid", "general"; `mont_mul_body`,
 `addsub_body`), counted in `mont_mul_body_counts` and
@@ -74,7 +78,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level", "fri_fold", "wide_reduce",
            "dft_reduce")
 launch_counts = {name: 0 for name in KERNELS}
-NTT_LEVEL_BODIES = ("mma", "butterfly", "limb")
+NTT_LEVEL_BODIES = ("mma", "butterfly", "limb", "shared")
 ntt_level_body_counts = {body: 0 for body in NTT_LEVEL_BODIES}
 DFT_REDUCE_BODIES = ("mma", "dp4a")
 dft_reduce_body_counts = {body: 0 for body in DFT_REDUCE_BODIES}
@@ -173,6 +177,8 @@ def _bind(lib):
     lib.hodor_ntt_level_mma.argtypes = lib.hodor_ntt_level.argtypes
     lib.hodor_ntt_level_butterfly.argtypes = [i32, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32,
                                               vp]
+    lib.hodor_ntt_level_pass.argtypes = [i32, vp, vp, vp, i64, i32, i64, vp, i32, vp, vp, i32, vp,
+                                         u32, u32, vp]
     lib.hodor_fri_fold.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, u32, vp]
     lib.hodor_wide_reduce.argtypes = [i32, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
     lib.hodor_dft_reduce.argtypes = [i32, vp, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp,
@@ -181,7 +187,7 @@ def _bind(lib):
     lib.hodor_s8dot.argtypes = [vp, vp, vp, i32, i32, i32, vp]
     for fn in (lib.hodor_mont_mul, lib.hodor_mont_pow, lib.hodor_addsub, lib.hodor_blake2s,
                lib.hodor_ntt_level, lib.hodor_ntt_level_mma, lib.hodor_ntt_level_butterfly,
-               lib.hodor_fri_fold,
+               lib.hodor_ntt_level_pass, lib.hodor_fri_fold,
                lib.hodor_wide_reduce, lib.hodor_dft_reduce, lib.hodor_dft_reduce_mma,
                lib.hodor_s8dot):
         fn.restype = ctypes.c_int
@@ -759,9 +765,22 @@ def ntt_level_butterfly_plain(field: Field, x, w, tw=None):
     ntt_level_plain. Reads row 1 of w alone, so it equals ntt_level_plain
     only where w is a DFT matrix (w[k, j] = w[1, 1]^(kj)), as dft_matrix
     builds it."""
-    bsz, size, cols, n = x.shape
+    size = x.shape[1]
     if size & (size - 1):
         raise ValueError(f"the butterfly body takes a power-of-two S, got {size}")
+    out = _dif_plain(field, x, w[1, :size // 2])
+    if tw is not None:
+        out = mont_mul_plain(field, out, tw)
+    return out
+
+
+def _dif_plain(field: Field, x, roots):
+    """log2 S radix-2 decimation-in-frequency stages over axis 1 of x
+    (B, S, C, n16) on canonical values, a pair (a, b) at distance h
+    becoming (a + b, (a - b) w^e), w^e = roots[e] (roots: (S/2, n16) limbs
+    of w^e for the level's S-point root w; no product at e = 0); the
+    outputs read back from their bit-reversed places, natural order."""
+    bsz, size, cols, n = x.shape
     v = x
     h = size // 2
     while h >= 1:
@@ -769,16 +788,13 @@ def ntt_level_butterfly_plain(field: Field, x, w, tw=None):
         a, b = pairs[:, :, 0], pairs[:, :, 1]
         dif = addsub_plain(field, a, b, "sub")
         if h > 1:
-            roots = w[1, 0:size // 2:size // (2 * h)][1:, None, :]  # w^e for i = 1 .. h - 1
-            dif = torch.cat([dif[:, :, :1], mont_mul_plain(field, dif[:, :, 1:], roots)], dim=2)
+            step = roots[0:size // 2:size // (2 * h)][1:, None, :]  # w^e for i = 1 .. h - 1
+            dif = torch.cat([dif[:, :, :1], mont_mul_plain(field, dif[:, :, 1:], step)], dim=2)
         v = torch.stack([addsub_plain(field, a, b, "add"), dif], dim=2).reshape(x.shape)
         h //= 2
     bits = size.bit_length() - 1
     order = [int(format(k, f"0{bits}b")[::-1], 2) if bits else 0 for k in range(size)]
-    out = v[:, order]
-    if tw is not None:
-        out = mont_mul_plain(field, out, tw)
-    return out
+    return v[:, order]
 
 
 def byte_planes(limbs):
@@ -946,6 +962,136 @@ def ntt_level(field: Field, x, w, tw=None, w_planes=None, body=None):
     _check(code, f"ntt_level ({body})")
     launch_counts["ntt_level"] += 1
     ntt_level_body_counts[body] += 1
+    return out
+
+
+# ------------------------------------------------ NTT level, shared body
+
+# the longest DFT one pass of the shared body computes: 2^11 points of a
+# column in shared memory, the first stage split over two blocks above that
+SHARED_MAX_LOG = 12
+
+
+class PowerTwiddle(NamedTuple):
+    """The four-step twiddle w_N^(k c) of output k of column c as two small
+    tables: lo[kc mod 2^shift] * hi[kc >> shift], packed words
+    (`pack_words`), lo of 2^shift entries, hi of N >> shift."""
+    lo: torch.Tensor
+    hi: torch.Tensor
+    shift: int
+
+
+def pack_words(limbs):
+    """(..., n16) int32 16-bit limbs -> (..., n16 / 2) int32 words (the
+    u32 bit patterns), the layout the shared body reads its tables in."""
+    return (limbs[..., 0::2] & 0xFFFF) | (limbs[..., 1::2] << 16)
+
+
+def unpack_words(words):
+    """pack_words' inverse."""
+    return torch.stack([words & 0xFFFF, (words >> 16) & 0xFFFF], dim=-1).reshape(
+        words.shape[:-1] + (2 * words.shape[-1],))
+
+
+@lru_cache(maxsize=None)
+def _zero_words(field: Field) -> int:
+    """Bit j set where word j of p is 0: the words whose products the
+    kernels' Montgomery reduction may skip."""
+    return sum(1 << j for j, word in enumerate(_words(field.p, field.n16 // 2)) if word == 0)
+
+
+def power_twiddle_plain(field: Field, tw: PowerTwiddle, size: int, cols: int):
+    """(S, C, n16) limbs of w_N^(k c) from the two tables."""
+    kc = torch.outer(torch.arange(size), torch.arange(cols)).to(tw.lo.device)
+    lo = unpack_words(tw.lo)[kc & ((1 << tw.shift) - 1)]
+    hi = unpack_words(tw.hi)[kc >> tw.shift]
+    return mont_mul_plain(field, lo, hi)
+
+
+def ntt_level_shared_plain(field: Field, x, roots, tw=None):
+    """The arithmetic of ntt_level's shared body in torch ops: x (B, S, C,
+    n16), S a power of two, roots the (S/2, n16 / 2) packed words of w^e
+    for the level's S-point root w (`pack_words`); log2 S radix-2
+    decimation-in-frequency stages on canonical values (as
+    ntt_level_butterfly_plain, O(log S) products an output), natural order
+    out, then the twiddle: None, an (n16,) scalar or a PowerTwiddle."""
+    size, cols = x.shape[1], x.shape[2]
+    out = _dif_plain(field, x, unpack_words(roots))
+    if isinstance(tw, PowerTwiddle):
+        out = mont_mul_plain(field, out, power_twiddle_plain(field, tw, size, cols))
+    elif tw is not None:
+        out = mont_mul_plain(field, out, tw)
+    return out
+
+
+def _check_pass_view(t, name: str) -> None:
+    if t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:-1]) or t.data_ptr() % 16:
+        raise ValueError(f"{name} must hold each element's limbs contiguous, at strides of "
+                         "16 bytes and a 16-byte aligned address")
+
+
+def ntt_level_shared(field: Field, x, roots, tw=None, out=None):
+    """One DFT level over axis 1 of x (B, S, C, n16), S = 2^1 .. 2^12, in
+    the shared body of ntt_level: radix-2 stages in shared memory, roots
+    read from `roots` ((S/2, n16 / 2) packed words of w^e, w the S-point
+    root), written in natural order into `out` (a (B, S, C, n16) view, at
+    any strides of whole elements; a new tensor if None; never x). tw:
+    None, an (n16,) scalar or a PowerTwiddle (the four-step's w_N^(k c)).
+    x may be any such view too. CPU: the plain version. CUDA: the kernel,
+    n16 = 16 only. Counts in launch_counts["ntt_level"] and
+    ntt_level_body_counts["shared"]."""
+    _check_limbs(field, x)
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, S, C, n16), got {tuple(x.shape)}")
+    bsz, size, cols, _ = x.shape
+    log_size = size.bit_length() - 1
+    if size != 1 << log_size or not 1 <= log_size <= SHARED_MAX_LOG:
+        raise ValueError(f"the shared body takes S = 2 .. 2^{SHARED_MAX_LOG}, got {size}")
+    nw = field.n16 // 2
+    if (roots.dtype != torch.int32 or tuple(roots.shape) != (size // 2, nw)
+            or roots.device != x.device):
+        raise ValueError(f"roots must be ({size // 2}, {nw}) int32 words on {x.device}")
+    if isinstance(tw, PowerTwiddle):
+        if (tw.lo.shape != (1 << tw.shift, nw) or tw.hi.dim() != 2 or tw.hi.shape[1] != nw
+                or tw.hi.shape[0] << tw.shift < (size - 1) * (cols - 1) + 1
+                or tw.lo.device != x.device or tw.hi.device != x.device):
+            raise ValueError(f"the power twiddle's tables do not cover S={size}, C={cols}")
+    elif tw is not None:
+        _check_limbs(field, tw)
+        if tuple(tw.shape) != (field.n16,) or tw.device != x.device:
+            raise ValueError(f"tw must be an (n16,) scalar on {x.device}, got {tuple(tw.shape)}")
+    if out is None:
+        out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    elif out.shape != x.shape or out.dtype != torch.int32 or out.device != x.device:
+        raise ValueError(f"out must be an int32 {tuple(x.shape)} view on {x.device}")
+    if x.device.type == "cpu":
+        return out.copy_(ntt_level_shared_plain(field, x, roots, tw))
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if field.n16 != 16:
+        raise ValueError(f"the shared body takes n16 = 16, got {field.n16}")
+    _check_pass_view(x, "x")
+    _check_pass_view(out, "out")
+    for table in (roots,) + ((tw.lo, tw.hi) if isinstance(tw, PowerTwiddle) else ()):
+        if not table.is_contiguous() or table.data_ptr() % 16:
+            raise ValueError("the shared body's tables must be contiguous and 16-byte aligned")
+    if out.numel() == 0:
+        return out
+    if isinstance(tw, PowerTwiddle):
+        tw_mode, tw_ptr, hi_ptr, shift = 3, tw.lo.data_ptr(), tw.hi.data_ptr(), tw.shift
+    else:
+        tw_mode, tw_ptr = (0, None) if tw is None else (1, tw.data_ptr())
+        hi_ptr, shift = None, 0
+    p_words, pinv0, _ = _field_args(field)
+    strides = _i64_array([x.stride(0), x.stride(2), x.stride(1),
+                          out.stride(0), out.stride(2), out.stride(1)])
+    code = _kernels().hodor_ntt_level_pass(
+        field.n16, out.data_ptr(), x.data_ptr(), roots.data_ptr(), bsz, log_size, cols, strides,
+        tw_mode, tw_ptr, hi_ptr, shift, p_words, pinv0, _zero_words(field), _stream(),
+    )
+    _check(code, "ntt_level (shared)")
+    launch_counts["ntt_level"] += 1
+    ntt_level_body_counts["shared"] += 1
     return out
 
 

@@ -1,6 +1,17 @@
-"""Radix-128 four-step NTT built from DFT levels.
+"""The NTT's plans: shared-body passes, or radix-128 four-step DFT levels.
 
-A length-N transform is log_128(N) levels of batched size-S DFTs with
+A 16-limb field's transform of SHARED_MIN_POINTS to SHARED_MAX_POINTS
+points (an F_STARK prove's trace, constraint and LDE transforms from
+2^8 rows) under the "level" form runs as one pass of the shared body of
+the `ntt_level` kernel up to 2^12 points, else two: radix-2 butterflies
+in shared memory, the n1-point DFTs of the (n1, n2) reshape's columns
+times the four-step twiddle w_N^(k1 j2) (from two tables of about
+sqrt(N) entries), then the n2-point DFTs of its rows, written in natural
+order straight into the output or the caller's `out=` view
+(`_ntt_shared`). It reads roots of unity, no DFT matrix.
+
+Every other transform (4-limb fields, short lengths, the "two_step" and
+"fused" forms) is log_128(N) levels of batched size-S DFTs with
 elementwise twiddles between them (the four-step decomposition, as
 hodor_tpu/ntt/matmul.py ntt_matmul). A level computes, per output, the
 exact wide sum sum_j W[k, j] x[j] against the Montgomery-form DFT
@@ -24,7 +35,8 @@ twiddle.
 
 Layout: a level reads x as (B, S, C, n16) and transforms axis 1, so the
 four-step's first level runs on the (B, n1, n2) reshape of the input
-with no transpose; only the recombination into natural order copies.
+with no transpose; in the radix plan the recombination into natural
+order copies.
 """
 
 from __future__ import annotations
@@ -212,12 +224,91 @@ def dft_level(ops: LimbOps, x, inverse: bool, tw=None):
                              w_planes=planes)
 
 
+def pass_roots(ops: LimbOps, size: int, inverse: bool) -> torch.Tensor:
+    """(size / 2, n16 / 2) packed words of w^e, e < size / 2, w the
+    generator of the size-`size` domain (its inverse when `inverse`): what
+    a shared-body pass of that length reads in place of a DFT matrix."""
+    key = ("roots", size, inverse)
+    if key not in ops.tables:
+        with span("ops.tables"):
+            domain = Domain.new_for_size(ops.field, size)
+            w = domain.generator_inv if inverse else domain.generator
+            ops.tables[key] = kernels.pack_words(ops.powers(ops.const(w), size // 2))
+    return ops.tables[key]
+
+
+def power_twiddles(ops: LimbOps, n: int, inverse: bool) -> kernels.PowerTwiddle:
+    """The four-step twiddles w_N^e, e < n, as two tables of about sqrt(n)
+    entries each: w_N^lo and w_N^(hi 2^shift)."""
+    key = ("power_twiddle", n, inverse)
+    if key not in ops.tables:
+        with span("ops.tables"):
+            domain = Domain.new_for_size(ops.field, n)
+            w = domain.generator_inv if inverse else domain.generator
+            shift = n.bit_length() // 2  # ceil(log2(n) / 2)
+            lo = ops.powers(ops.const(w), 1 << shift)
+            hi = ops.powers(ops.const(pow(w, 1 << shift, ops.field.p)), max(1, n >> shift))
+            ops.tables[key] = kernels.PowerTwiddle(kernels.pack_words(lo), kernels.pack_words(hi),
+                                                   shift)
+    return ops.tables[key]
+
+
+# transforms of a 16-limb field from this length to SHARED_MAX_POINTS run
+# as one or two passes of the shared body of ntt_level: on an H100 a pass
+# of 2^8 points takes 0.06 ms against 0.13 for the radix levels; below,
+# one launch either way (PERF.md section 6)
+SHARED_MIN_POINTS = 1 << 8
+SHARED_MAX_POINTS = 1 << (2 * kernels.SHARED_MAX_LOG)
+
+
+def shared_passes(ops: LimbOps, n: int):
+    """The pass lengths of a length-n transform in the shared body, one
+    pass up to 2^12 points, else two (n1 <= n2, n1 n2 = n); None where the
+    transform keeps the radix levels: a 4-limb field, the "two_step" and
+    "fused" forms, lengths outside SHARED_MIN_POINTS .. SHARED_MAX_POINTS."""
+    if (ops.ntt_impl != "level" or ops.n16 != 16
+            or not SHARED_MIN_POINTS <= n <= SHARED_MAX_POINTS):
+        return None
+    log_n = n.bit_length() - 1
+    if log_n <= kernels.SHARED_MAX_LOG:
+        return (n,)
+    return (1 << log_n // 2, n >> log_n // 2)
+
+
+def _ntt_shared(ops: LimbOps, x, inverse: bool, scale, out, passes):
+    """The transform in shared-body passes: the n1-point DFTs of the
+    columns of the (n1, n2) reshape, times w_N^(k1 j2), into a (n1, n2)
+    scratch; then the n2-point DFTs of its rows, times `scale`, written
+    straight in natural order (out[k2 n1 + k1]) into `out` or a new
+    tensor. One pass up to 2^12 points."""
+    n, L = x.shape[-2:]
+    lead = x.shape[:-2]
+    b = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    xb = x.reshape(b, n, L)
+    if out is None:
+        res = torch.empty((b, n, L), dtype=torch.int32, device=x.device)
+    else:
+        res = out.view(b, n, L)
+    if len(passes) == 1:
+        kernels.ntt_level_shared(ops.field, xb.view(b, n, 1, L), pass_roots(ops, n, inverse),
+                                 scale, out=res.view(b, n, 1, L))
+    else:
+        n1, n2 = passes
+        mid = torch.empty((b, n1, n2, L), dtype=torch.int32, device=x.device)
+        kernels.ntt_level_shared(ops.field, xb.view(b, n1, n2, L), pass_roots(ops, n1, inverse),
+                                 power_twiddles(ops, n, inverse), out=mid)
+        kernels.ntt_level_shared(ops.field, mid.transpose(1, 2), pass_roots(ops, n2, inverse),
+                                 scale, out=res.view(b, n2, n1, L))
+    return res.view(lead + (n, L)) if out is None else out
+
+
 def level_sizes(field: Field, n: int):
-    """The radices of the levels `ntt_matmul` runs for a length-n
+    """The radices of the levels the radix plan runs for a length-n
     transform over `field`, in order (each level writes n outputs): the
     field's largest radix up to RADIX while more than one is left, then
-    the rest; 128, 128, 64 for F_STARK at 2^20. `ntt_matmul` takes its
-    first level from here."""
+    the rest; 128, 128, 64 for F_STARK at 2^20 (where the "level" form
+    takes the shared plan instead: `shared_passes`). `ntt_matmul` takes
+    its first level from here."""
     radix = min(RADIX, max_radix(field))
     sizes = []
     while n > radix:
@@ -227,14 +318,18 @@ def level_sizes(field: Field, n: int):
 
 
 def ntt_matmul(ops: LimbOps, x, inverse: bool = False, scale=None, out=None):
-    """Natural-order NTT over axis -2 of (..., N, n16) using radix-128
-    levels. scale: optional (n16,) Montgomery constant applied in the
-    terminal level (the inverse transform's 1/N). out: an optional
+    """Natural-order NTT over axis -2 of (..., N, n16): the shared-body
+    passes where `shared_passes` gives them, else radix-128 levels.
+    scale: optional (n16,) Montgomery constant applied in the terminal
+    level or pass (the inverse transform's 1/N). out: an optional
     (..., N, n16) int32 view (rows at any one stride) that the natural
     order is written into, in place of a new tensor."""
     n = x.shape[-2]
     if n & (n - 1):
         raise ValueError(f"ntt_matmul needs a power-of-two length, got {n}")
+    passes = shared_passes(ops, n)
+    if passes is not None:
+        return _ntt_shared(ops, x, inverse, scale, out, passes)
     L = x.shape[-1]
     lead = x.shape[:-2]
     b = int(np.prod(lead, dtype=np.int64)) if lead else 1

@@ -26,7 +26,9 @@ Modes:
          `bound_ms`: the H100's least time for the call (tools/roofline.py
          `ntt_bound_ms`: one read and one write of the array, or the int8
          operations of a radix-2 transform, whichever is larger; no count
-         of the radices the port picked, which `levels_int8_ms` gives);
+         of the radices the port picked, which `levels_int8_ms` gives for
+         the radix levels and is null for the shared-body passes;
+         `level_sizes`: the lengths of the levels or passes that ran);
          `vs_sol` = `vs_baseline` = bound_ms / ms. `correct`: intt(ntt(x))
          gives x back bit for bit, three seeded outputs equal the
          polynomial's values on the host, and so does the last output of
@@ -279,7 +281,7 @@ def bench_ntt(args, dev):
     """(line, the transform of the seeded input)."""
     from ..field import LimbOps
     from ..ntt import intt, ntt
-    from ..ntt.matmul import level_sizes
+    from ..ntt.matmul import level_sizes, shared_passes
     from .roofline import levels_ms, ntt_bound_ms
 
     field = field_of(args.field)
@@ -304,13 +306,15 @@ def bench_ntt(args, dev):
         correct = correct and torch.equal(out.cpu(), want)
     synchronize(dev)
     ms = statistics.median(samples)
-    sizes = level_sizes(field, n)
+    passes = shared_passes(ops, n)
+    sizes = list(passes) if passes else level_sizes(field, n)
     bound, bound_by = ntt_bound_ms(n, field.n16, args.batch)
     value = args.batch * (n // 2) * args.log_n / (ms / 1e3)
     on_card = dev.type == "cuda"
     name = (f"ntt_2^{args.log_n}_{field.name}_field_muls_per_s_per_chip"
             + name_suffix(args, ("impl", "batch")))
-    print(f"# ntt 2^{args.log_n} x{args.batch} over {field.name} ({args.impl}; levels {sizes}): "
+    plan = "shared passes" if passes else "levels"
+    print(f"# ntt 2^{args.log_n} x{args.batch} over {field.name} ({args.impl}; {plan} {sizes}): "
           f"{ms:.4f} ms a call, {value:.4e} field-muls/s; bound {bound:.4f} ms ({bound_by})",
           file=sys.stderr)
     line = {
@@ -320,7 +324,7 @@ def bench_ntt(args, dev):
         "vs_cpu_estimate": value / BASELINE_MULS_PER_S,
         "ms_per_call": ms, "ms_per_transform": ms / args.batch,
         "bound_ms": bound, "bound_by": bound_by, "level_sizes": sizes,
-        "levels_int8_ms": levels_ms(sizes, n, field.n16, args.batch),
+        "levels_int8_ms": None if passes else levels_ms(sizes, n, field.n16, args.batch),
         "field": field.name, "impl": args.impl, "log_n": args.log_n, "batch": args.batch,
         "reps": args.reps, "windows": WINDOWS, "build_s": build_s,
         "timing": "cuda_events_chain" if on_card else "host_clock_chain",

@@ -64,11 +64,12 @@ def stage_peaks(peaks: list, echo=None):
 
 def table_bytes(tables: dict) -> list:
     """(key, bytes) of each entry of an `ops.tables`, largest first; an
-    entry may be a tensor or a tuple of them."""
+    entry may be a tensor or a tuple of them (a PowerTwiddle's int shift
+    counts nothing)."""
     def size(v):
         if isinstance(v, torch.Tensor):
             return v.numel() * v.element_size()
-        return sum(size(x) for x in v)
+        return sum(size(x) for x in v if not isinstance(x, int))
 
     return sorted(((k, size(v)) for k, v in tables.items()), key=lambda kv: -kv[1])
 

@@ -159,19 +159,23 @@ def test_seeded_limbs_are_bench_py_input_and_below_p():
 def test_ntt_bound_is_the_count_by_hand(field, log_n):
     """2 transforms: one read and one write of (2, N, n16) int32, and
     log2 N radix-2 levels of 2 N outputs at 2·2·(2 n16)^2 int8 operations,
-    whatever radices ran (F_STARK 2^10: 128 and 8; F257 2^5: 32); both
-    bound by their bytes at these sizes. `levels_int8_ms` counts the
-    levels that ran."""
+    whatever ran (F_STARK 2^10: one shared-body pass of 1024 points; F257
+    2^5: a radix-32 level); both bound by their bytes at these sizes.
+    `levels_int8_ms` counts the radix levels that ran, null for the
+    shared passes."""
     line = _ntt(field, log_n)[0]
     n, n16, sizes = 1 << log_n, {"F_STARK": 16, "F257": 4}[field], \
-        {"F_STARK": [128, 8], "F257": [32]}[field]
+        {"F_STARK": [1024], "F257": [32]}[field]
     by_bytes = 1e3 * 2 * 2 * n * n16 * 4 / 3.35e12
     by_ops = 1e3 * 2 * n * log_n * 2 * 2 * (2 * n16) ** 2 / 1979e12
     assert line["level_sizes"] == sizes
     assert line["bound_ms"] == pytest.approx(max(by_bytes, by_ops), rel=1e-12)
     assert line["bound_by"] == "bytes"
-    assert line["levels_int8_ms"] == pytest.approx(
-        1e3 * 2 * n * sum(2 * s * (2 * n16) ** 2 for s in sizes) / 1979e12, rel=1e-12)
+    if field == "F_STARK":
+        assert line["levels_int8_ms"] is None
+    else:
+        assert line["levels_int8_ms"] == pytest.approx(
+            1e3 * 2 * n * sum(2 * s * (2 * n16) ** 2 for s in sizes) / 1979e12, rel=1e-12)
 
 
 @pytest.mark.parametrize("field,log_n,want,by", [
@@ -216,10 +220,12 @@ def test_points_catch_what_the_round_trip_cannot():
     assert not bench.points_agree(F_STARK, x, out, out, 2, 0)
 
 
-@pytest.mark.parametrize("field,log_n,sizes", [
-    (F_STARK, 10, [128, 8]), (F_STARK, 7, [128]), (F_STARK, 0, []), (F257, 5, [32]),
-    (F_BLS, 3, [4, 2]), (F_P63, 6, [4, 4, 4])])
-def test_level_sizes_are_the_levels_ntt_matmul_runs(field, log_n, sizes, monkeypatch):
+@pytest.mark.parametrize("field,log_n,sizes,impl", [
+    (F_STARK, 10, [128, 8], "two_step"), (F_STARK, 7, [128], "level"), (F_STARK, 0, [], "level"),
+    (F257, 5, [32], "level"), (F_BLS, 3, [4, 2], "level"), (F_P63, 6, [4, 4, 4], "level")])
+def test_level_sizes_are_the_levels_ntt_matmul_runs(field, log_n, sizes, impl, monkeypatch):
+    """The radix plan's levels (F_STARK at 2^10 under "level" runs the
+    shared-body pass instead, so its levels are asked of "two_step")."""
     seen = []
     level = M.dft_level
 
@@ -228,7 +234,7 @@ def test_level_sizes_are_the_levels_ntt_matmul_runs(field, log_n, sizes, monkeyp
         return level(ops, x, inverse, tw)
 
     monkeypatch.setattr(M, "dft_level", counting)
-    ntt(LimbOps(field, CPU), bench.seeded_limbs(field, (1 << log_n,), 1))
+    ntt(LimbOps(field, CPU, impl), bench.seeded_limbs(field, (1 << log_n,), 1))
     assert M.level_sizes(field, 1 << log_n) == seen == sizes
 
 

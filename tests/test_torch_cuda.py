@@ -20,6 +20,7 @@ from hodor_tpu_torch.field import F257, F_BLS, F_P63, F_STARK, LimbOps
 from hodor_tpu_torch.field import kernels as K
 from hodor_tpu_torch.merkle.blake2s import keyed_midstate
 from hodor_tpu_torch.ntt import intt, ntt
+from hodor_tpu_torch.ntt import matmul as M
 from hodor_tpu_torch.ntt.matmul import (dft_matrix, dft_matrix_planes, encode_s8,
                                         folded_dft_matrix, max_radix)
 
@@ -601,7 +602,8 @@ def test_level_kernels_at_worst_case_inputs(dev, name, size, cols, bsz, tw):
 
 @pytest.mark.parametrize("log_n", [9, 10])
 def test_level_forms_agree_on_the_card_f_bls(dev, log_n):
-    """Radix-4 levels (radix 2 last at an odd log size) under each form."""
+    """The shared-body pass ("level") against radix-4 levels, radix 2 last
+    at an odd log size ("two_step", "fused")."""
     x = _canonical(F_BLS, (2, 1 << log_n), 26).to(dev)
     outs = [(ntt(LimbOps(F_BLS, dev, impl), x), intt(LimbOps(F_BLS, dev, impl), x))
             for impl in ("level", "two_step", "fused")]
@@ -652,3 +654,100 @@ def test_bench_prove_is_verified_on_the_card(dev):
         bench.parse_args(["--mode", "prove", "--log-rows", "10", "--reps", "1"]), dev)
     assert line["verified"] is True and len(proofs) == 1
     assert line["metric"] == "quadratic_vdf_2^10_rows_prove_wall_s" and line["peak_gib"] > 0
+
+
+def _plain_passes(ops, x, inverse):
+    """The shared plan's passes of a (B, N, n16) card tensor in the body's
+    plain version (torch ops, on the card), natural order out."""
+    field, (bsz, n, limbs) = ops.field, x.shape
+    scale = ops.const(field.inv(n)) if inverse else None
+    n1, n2 = M.shared_passes(ops, n)
+    mid = K.ntt_level_shared_plain(field, x.view(bsz, n1, n2, limbs),
+                                   M.pass_roots(ops, n1, inverse),
+                                   M.power_twiddles(ops, n, inverse))
+    out = K.ntt_level_shared_plain(field, mid.transpose(1, 2), M.pass_roots(ops, n2, inverse),
+                                   scale)
+    return out.reshape(bsz, n, limbs)
+
+
+def _radix_levels(ops, x, inverse, monkeypatch):
+    """The radix-128 plan of the same transform (the "mma" body at S = 128)."""
+    with monkeypatch.context() as m:
+        m.setattr(M, "SHARED_MIN_POINTS", 1 << 40)
+        before = K.ntt_level_body_counts["mma"]
+        got = intt(ops, x) if inverse else ntt(ops, x)
+        assert K.ntt_level_body_counts["mma"] > before
+    return got
+
+
+@pytest.mark.parametrize("log_n,bsz,inverse", [(20, 2, False), (21, 1, False), (22, 1, False),
+                                               (20, 1, True), (21, 1, True)])
+def test_shared_body_at_the_main_path_shapes(dev, log_n, bsz, inverse, monkeypatch):
+    """The transforms of a 2^20- and 2^22-row prove (two passes of 2^10 to
+    2^11 points) bit-equal to the body's plain version and to the radix
+    plan's mma levels; two launches of the shared body, no other."""
+    ops = LimbOps(F_STARK, dev)
+    x = _canonical(F_STARK, (bsz, 1 << log_n), 40 + log_n).to(dev)
+    before = dict(K.ntt_level_body_counts)
+    got = intt(ops, x) if inverse else ntt(ops, x)
+    counts = {b: K.ntt_level_body_counts[b] - before[b] for b in K.NTT_LEVEL_BODIES}
+    assert counts == {"mma": 0, "butterfly": 0, "limb": 0, "shared": 2}
+    _same(got, _plain_passes(ops, x, inverse))
+    _same(got, _radix_levels(ops, x, inverse, monkeypatch))
+
+
+def test_shared_body_writes_an_lde_coset_through_out(dev, monkeypatch):
+    """One coset of a 2^20-row LDE at factor 16 written straight into its
+    rows at stride 16 of the blown-up domain, the other rows untouched;
+    and the LDE by coset equal to the batched one."""
+    from hodor_tpu_torch import ntt as N
+
+    ops = LimbOps(F_STARK, dev)
+    x = _canonical(F_STARK, (2, 1 << 20), 61).to(dev)
+    full = torch.full((2, 1 << 20, 16, 16), -1, dtype=torch.int32, device=dev)
+    got = ntt(ops, x, out=full[:, :, 3])
+    assert got.data_ptr() == full[:, :, 3].data_ptr()
+    _same(full[:, :, 3], ntt(ops, x))
+    assert bool((full[:, :, :3] == -1).all()) and bool((full[:, :, 4:] == -1).all())
+    del full, got
+    coeffs = x[:, : 1 << 16]
+    batched = N.lde(ops, coeffs, 16, coset=True)
+    monkeypatch.setattr(N, "LDE_SEQUENTIAL_MIN", 1)
+    _same(N.lde(ops, coeffs, 16, coset=True), batched)
+
+
+@pytest.mark.parametrize("name,log_n", [("F_STARK", 20), ("F_BLS", 16)])
+def test_shared_body_at_worst_case_inputs(dev, name, log_n, monkeypatch):
+    """Every x = p - 1, forward and inverse with 1/N, against the plain
+    version and the radix plan."""
+    field = FIELDS[name]
+    ops = LimbOps(field, dev)
+    top = torch.as_tensor([((field.p - 1) >> (16 * i)) & 0xFFFF for i in range(field.n16)],
+                          dtype=torch.int32)
+    x = top.expand(1, 1 << log_n, field.n16).contiguous().to(dev)
+    for inverse in (False, True):
+        got = intt(ops, x) if inverse else ntt(ops, x)
+        _same(got, _plain_passes(ops, x, inverse))
+        if name == "F_STARK":
+            _same(got, _radix_levels(ops, x, inverse, monkeypatch))
+
+
+def test_main_path_proof_through_the_shared_body(dev, monkeypatch):
+    """A 2^20-row quadratic VDF: the proof bytes through the shared plan
+    equal the radix plan's, and every transform of 2^8 points or more took
+    the shared body (the FRI's last 16-point interpolation keeps its
+    radix level)."""
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+
+    witness, props = VDF(F_STARK, 1, 2, (1 << 20) - 1).into_arp()
+    before = dict(K.ntt_level_body_counts)
+    shared = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1,
+                    device=dev).prove(witness)
+    counts = {b: K.ntt_level_body_counts[b] - before[b] for b in K.NTT_LEVEL_BODIES}
+    assert counts["mma"] == 0 and counts["shared"] > 0
+    monkeypatch.setattr(M, "SHARED_MIN_POINTS", 1 << 40)
+    levels = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1,
+                    device=dev).prove(witness)
+    assert serialize_proof(shared, F_STARK) == serialize_proof(levels, F_STARK)

@@ -1,8 +1,9 @@
 """The port over the two fields off F_STARK and F257, on CPU tensors:
 F_BLS (the BLS12-381 scalar field, 255 bits, 16 limbs, R/p = 2.21) and
 F_P63 (a 63-bit prime in 4 limbs, R/p = 2.00). For both, max_radix is 4,
-so every NTT runs radix-4 levels (radix 2 last at odd log sizes), where
-hodor_tpu runs Pease levels.
+so an NTT's radix plan is radix-4 levels (radix 2 last at odd log sizes),
+where hodor_tpu runs Pease levels; F_BLS's transforms from 2^8 points run
+the shared-body passes of the 16-limb fields instead.
 
 - Field arithmetic over all four fields against Python ints
   (tests/test_field.py).
@@ -38,6 +39,7 @@ from hodor_tpu_torch.field import F257, F_BLS, F_P63, F_STARK, LimbOps, from_num
 from hodor_tpu_torch.field import to_numpy_limbs
 from hodor_tpu_torch.models import VDF
 from hodor_tpu_torch.ntt import intt, lde, ntt
+from hodor_tpu_torch.ntt import matmul as M
 from hodor_tpu_torch.ntt.matmul import max_radix
 from hodor_tpu_torch.proof_io import deserialize_proof, serialize_proof
 from hodor_tpu_torch.prover import Prover
@@ -116,14 +118,18 @@ def test_two_adicity_and_root(name):
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
 @pytest.mark.parametrize("name", NEW_FIELDS)
-def test_radix4_ntt_equals_hodor_tpu_pease(name, inverse):
-    """n = 512 = 2^9, an odd log size: levels of radix 4, 4, 4, 4 and 2."""
+def test_radix4_ntt_equals_hodor_tpu_pease(name, inverse, monkeypatch):
+    """n = 512 = 2^9, an odd log size: levels of radix 4, 4, 4, 4 and 2
+    (F_BLS: its shared-body pass, and the radix levels forced)."""
     field = FIELDS[name]
     assert max_radix(field) == 4
     random.seed(61)
     jops = jfield.ops_for(getattr(jfield, name))
     a = jops.encode([random.randrange(field.p) for _ in range(512)])
     want = np.asarray(_ntt_pease(jops, a, 9, inverse))
+    got = ntt(LimbOps(field, "cpu"), from_numpy_limbs(np.asarray(a), "cpu"), inverse)
+    assert np.array_equal(to_numpy_limbs(got), want)
+    monkeypatch.setattr(M, "SHARED_MIN_POINTS", 1 << 30)
     got = ntt(LimbOps(field, "cpu"), from_numpy_limbs(np.asarray(a), "cpu"), inverse)
     assert np.array_equal(to_numpy_limbs(got), want)
 
@@ -147,9 +153,9 @@ def test_lde_equals_the_oracle(name, factor):
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
 def test_level_forms_agree_over_f_bls(inverse):
-    """"level", "two_step" and "fused" at n = 2^10 (five radix-4 levels)
-    over two rows: on the card the last two run wide_reduce and the __dp4a
-    body of dft_reduce at S = 4."""
+    """"level" (one shared-body pass), "two_step" and "fused" (five
+    radix-4 levels) at n = 2^10 over two rows: on the card the last two
+    run wide_reduce and the __dp4a body of dft_reduce at S = 4."""
     rng = np.random.default_rng(63)
     limbs = rng.integers(0, 1 << 16, size=(2, 1 << 10, F_BLS.n16), dtype=np.uint32)
     limbs[..., -1] &= (1 << (F_BLS.num_bits - 1 - 16 * (F_BLS.n16 - 1))) - 1

@@ -23,6 +23,7 @@ from hodor_tpu_torch.field import F257, F_BLS, F_P63, F_STARK, LimbOps, from_num
 from hodor_tpu_torch.field import kernels as K
 from hodor_tpu_torch.field import to_numpy_limbs
 from hodor_tpu_torch.ntt import ntt
+from hodor_tpu_torch.ntt import matmul as M
 from hodor_tpu_torch.ntt.matmul import dft_matrix, max_radix
 
 torch.set_num_threads(1)
@@ -79,6 +80,9 @@ def test_ntt_of_butterfly_levels_equals_hodor_tpu_pease(monkeypatch, name, inver
         return K.ntt_level_butterfly_plain(fld, x, w, tw)
 
     monkeypatch.setattr(K, "ntt_level", butterfly_level)
+    # F_BLS from 2^8 points runs the shared-body passes; the radix plan is
+    # what these levels assemble
+    monkeypatch.setattr(M, "SHARED_MIN_POINTS", 1 << 30)
     random.seed(70 + log_n)
     jops = jfield.ops_for(getattr(jfield, name))
     a = jops.encode([random.randrange(field.p) for _ in range(1 << log_n)])
