@@ -92,6 +92,11 @@ Phases, each reported on its own line:
  12. over F_STARK at lde factor 8, the same for the six-register instance
      with polyvariate cross-register terms at 2^20 rows (its witness a
      Python loop, timed) and the Repeated/Sparse one at 2^16 rows;
+ 12b. the Poseidon chain (models/poseidon.py: Hades, 10 registers,
+     degree-3 constraints, a 4T constraints domain) at 2^20 rows, lde
+     factor 16, FRI to a constant, native witness: proved cold and warm,
+     verified, a tampered proof rejected; the memory-bounded forms may
+     engage (they are printed);
  14. (after phase 12, before phase 13) the memory-bounded forms (trees
      that keep only their root, leaves hashed in chunks, LDEs coset by
      coset, DEEP's domain points not kept; profiling.form_counts), with no
@@ -1803,7 +1808,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from hodor_tpu_torch.field import F_BLS, F_P63, F_STARK
     from hodor_tpu_torch.field import kernels as K
-    from hodor_tpu_torch.models import VDF, CubicVDF
+    from hodor_tpu_torch.models import VDF, CubicVDF, PoseidonChain
     from hodor_tpu_torch.utils.native import build_host_library
 
     dev = torch.device("cuda", 0)
@@ -1861,6 +1866,8 @@ def main() -> int:
         (f"Repeated/Sparse 2^{LOG_ROWS_LEVEL_FORMS}, lde 8", F_STARK,
          lambda: repeated_sparse(F_STARK, 1 << LOG_ROWS_LEVEL_FORMS),
          dict(native=False, lde_factor=8)),
+        ("Poseidon chain 2^20, degree 3, lde 16", F_STARK,
+         PoseidonChain(F_STARK, 1, 2, rows).into_arp, dict(forms=True)),
     )
     off_ground_bodies = {}
     for label, fld, into_arp, options in off_ground:

@@ -101,6 +101,10 @@ class ALIInstance:
         self.constraints_domain = Domain.new_for_size(
             self.field, self.column_domain.size * self.max_constraint_power
         )
+        # the term and boundary coset-LDEs fill the constraints domain, the
+        # degree rounded up to a power of two (4 at degree 3); the degree
+        # adjustments keep the raw maximum
+        self.term_lde_factor = self.constraints_domain.size // self.column_domain.size
 
         # ordered masks (constraints first, boundary last - the
         # reference's IndexSet fill order, src/ali/per_register/mod.rs:53-57
@@ -269,20 +273,21 @@ class ALIInstance:
         field = self.field
         d_size = self.constraints_domain.size // self._ranks  # this rank's rows
         L = ops.n16
-        power_hint = self.max_constraint_power  # LDE factor for term evaluation
+        factor = self.term_lde_factor
 
-        # 1. mask witness polys: f_m = witness[reg] with powers of mask
-        #    distributed (src/ali/per_register/mod.rs:276-290)
-        masked = []
-        for m in self.all_masks:
-            f = witness_coeffs[..., m.register_index, :, :]
-            masked.append(f if m.mask == 1 else distribute_powers(ops, f, ops.const(m.mask)))
-        # 2. batched coset-LDE of every distinct (mask, power) term
-        #    (the memoized evaluate_univariate_term_into_values, :356-421)
-        bases = torch.stack([masked[mi] for (mi, _pw) in self.term_ldes], dim=0)
-        base_ldes = self._coset_lde(bases, power_hint)  # (K, [B,] D, L)
-        term_vals = [ops.pow_static(base_ldes[k], pw)
-                     for k, (_mi, pw) in enumerate(self.term_ldes)]
+        with span("ali.terms"):
+            # 1. mask witness polys: f_m = witness[reg] with powers of mask
+            #    distributed (src/ali/per_register/mod.rs:276-290)
+            masked = []
+            for m in self.all_masks:
+                f = witness_coeffs[..., m.register_index, :, :]
+                masked.append(f if m.mask == 1 else distribute_powers(ops, f, ops.const(m.mask)))
+            # 2. batched coset-LDE of every distinct (mask, power) term
+            #    (the memoized evaluate_univariate_term_into_values, :356-421)
+            bases = torch.stack([masked[mi] for (mi, _pw) in self.term_ldes], dim=0)
+            base_ldes = self._coset_lde(bases, factor)  # (K, [B,] D, L)
+            term_vals = [ops.pow_static(base_ldes[k], pw)
+                         for k, (_mi, pw) in enumerate(self.term_ldes)]
 
         # distinct adjustment powers -> x^adj tables, computed once each
         adj_pows = {}
@@ -292,63 +297,67 @@ class ALIInstance:
                 adj_pows[adj] = ops.pow_static(self.coset_values, adj)
             return adj_pows[adj]
 
-        g_values = ops.zero_m.expand(d_size, L)
-        ci = 0
-        for key, batch in self.batches.items():
-            batch_values = ops.zero_m.expand(d_size, L)
-            for c in batch:
-                alpha = self._lane_scalar(c_alphas[ci])
-                beta = self._lane_scalar(c_betas[ci])
-                ci += 1
-                cvals = ops.const(c.constant_term % field.p).expand(d_size, L)
-                for t in c.terms:
-                    unis = [t] if isinstance(t, UnivariateTerm) else t.terms
-                    prod = None
-                    for u in unis:
-                        v = term_vals[self.term_ldes[self._term_key(u)]]
-                        prod = v if prod is None else ops.mul(prod, v)
-                    if t.coeff % field.p != 1:
-                        prod = ops.mul(prod, ops.const(t.coeff % field.p))
-                    cvals = ops.add(cvals, prod)
-                adjustment = self.max_constraint_power - c.degree
-                if adjustment == 0:
-                    cvals = ops.mul(cvals, alpha)
-                else:
-                    # alpha * x^adj + beta over the coset (:292-308)
-                    factor = ops.add(ops.mul(adj_table(adjustment), alpha), beta)
-                    cvals = ops.mul(cvals, factor)
-                batch_values = ops.add(batch_values, cvals)
-            batch_values = ops.mul(batch_values, self.constraint_divisors[key])
-            g_values = ops.add(g_values, batch_values)
+        with span("ali.compose"):
+            g_values = ops.zero_m.expand(d_size, L)
+            ci = 0
+            for key, batch in self.batches.items():
+                batch_values = ops.zero_m.expand(d_size, L)
+                for c in batch:
+                    alpha = self._lane_scalar(c_alphas[ci])
+                    beta = self._lane_scalar(c_betas[ci])
+                    ci += 1
+                    cvals = ops.const(c.constant_term % field.p).expand(d_size, L)
+                    for t in c.terms:
+                        unis = [t] if isinstance(t, UnivariateTerm) else t.terms
+                        prod = None
+                        for u in unis:
+                            v = term_vals[self.term_ldes[self._term_key(u)]]
+                            prod = v if prod is None else ops.mul(prod, v)
+                        if t.coeff % field.p != 1:
+                            prod = ops.mul(prod, ops.const(t.coeff % field.p))
+                        cvals = ops.add(cvals, prod)
+                    adjustment = self.max_constraint_power - c.degree
+                    if adjustment == 0:
+                        cvals = ops.mul(cvals, alpha)
+                    else:
+                        # alpha * x^adj + beta over the coset (:292-308)
+                        adj = ops.add(ops.mul(adj_table(adjustment), alpha), beta)
+                        cvals = ops.mul(cvals, adj)
+                    batch_values = ops.add(batch_values, cvals)
+                batch_values = ops.mul(batch_values, self.constraint_divisors[key])
+                g_values = ops.add(g_values, batch_values)
 
         # boundary constraints (:480-524), batched: one coset-LDE of all
         # shifted register polys, one adjustment/divisor pass
         bcs = self.properties.boundary_constraints
         if bcs:
-            nb = len(bcs)
-            lane_dims = (1,) * (witness_coeffs.dim() - 3)  # () or (1,) for a batch
-            wstack = torch.stack([witness_coeffs[..., bc.register.index, :, :] for bc in bcs])
-            bvals = ops.encode([bc.value % field.p for bc in bcs])  # (nb, L)
-            wstack[..., 0, :] = ops.sub(wstack[..., 0, :], bvals.reshape((nb,) + lane_dims + (L,)))
-            cvals = self._coset_lde(wstack, power_hint)  # (nb, [B,] D, L)
-            adjustment = self.max_constraint_power - 1
-            if adjustment == 0:
-                cvals = ops.mul(cvals, b_alphas[..., None, :])
-            else:
-                adj = ops.add(ops.mul(adj_table(adjustment)[None], b_alphas[..., None, :]),
-                              b_betas[..., None, :])
-                cvals = ops.mul(cvals, adj)
-            bdiv = torch.stack([self.boundary_divisors[bc.at_row] for bc in bcs])
-            cvals = ops.mul(cvals, bdiv.reshape((nb,) + lane_dims + (d_size, L)))
-            g_values = ops.add(g_values, ops.sum_reduce(cvals, axis=0))
+            with span("ali.boundary"):
+                nb = len(bcs)
+                lane_dims = (1,) * (witness_coeffs.dim() - 3)  # () or (1,) for a batch
+                wstack = torch.stack([witness_coeffs[..., bc.register.index, :, :] for bc in bcs])
+                bvals = ops.encode([bc.value % field.p for bc in bcs])  # (nb, L)
+                wstack[..., 0, :] = ops.sub(wstack[..., 0, :],
+                                            bvals.reshape((nb,) + lane_dims + (L,)))
+                cvals = self._coset_lde(wstack, factor)  # (nb, [B,] D, L)
+                adjustment = self.max_constraint_power - 1
+                if adjustment == 0:
+                    cvals = ops.mul(cvals, b_alphas[..., None, :])
+                else:
+                    adj = ops.add(ops.mul(adj_table(adjustment)[None], b_alphas[..., None, :]),
+                                  b_betas[..., None, :])
+                    cvals = ops.mul(cvals, adj)
+                bdiv = torch.stack([self.boundary_divisors[bc.at_row] for bc in bcs])
+                cvals = ops.mul(cvals, bdiv.reshape((nb,) + lane_dims + (d_size, L)))
+                g_values = ops.add(g_values, ops.sum_reduce(cvals, axis=0))
 
         # G interpolant (:526)
-        return self._interpolant(g_values)
+        with span("ali.interpolant"):
+            return self._interpolant(g_values)
 
     def _coset_lde(self, coeffs, factor: int):
         """The term coset-LDE; under a mesh this rank's rows of it, the
         T-point NTTs row-sharded where T >= 2W (the JAX package's
-        condition; the factor, max_constraint_power, is usually below W)."""
+        condition; the factor, term_lde_factor, is usually below W)."""
         if self.mesh is None:
             return lde(self.ops, coeffs, factor, coset=True)
         t = coeffs.shape[-2]

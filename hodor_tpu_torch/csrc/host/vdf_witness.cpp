@@ -1,6 +1,7 @@
-// Host witness chains of the VDF models: the squaring and cubing
-// recurrences in Fp2 = F[x]/(x^2 - nr) on 4 x 64-bit Montgomery words
-// (CIOS), for odd moduli up to 256 bits. Not a device kernel: the chain
+// Host witness chains of the models: the VDFs' squaring and cubing
+// recurrences in Fp2 = F[x]/(x^2 - nr), and the Poseidon (Hades) chain
+// of models/poseidon.py, on 4 x 64-bit Montgomery words (CIOS), for odd
+// moduli up to 256 bits. Not a device kernel: each chain
 // is sequential, a million steps of a few products each, and runs on one
 // host core in a fraction of a second where the Python int chain takes
 // seconds. The port's counterpart of native/vdf_witness.cpp (the
@@ -75,6 +76,21 @@ inline void add_mod(const Fp& f, const u64 a[4], const u64 b[4], u64 out[4]) {
   }
   const bool ge = carry || !borrow;
   for (int j = 0; j < 4; ++j) out[j] = ge ? d[j] : s[j];
+}
+
+inline void sub_mod(const Fp& f, const u64 a[4], const u64 b[4], u64 out[4]) {
+  u64 borrow = 0, d[4];
+  for (int j = 0; j < 4; ++j) {
+    const u128 cur = (u128)a[j] - b[j] - borrow;
+    d[j] = (u64)cur;
+    borrow = (cur >> 64) ? 1 : 0;
+  }
+  u64 carry = 0;
+  for (int j = 0; j < 4; ++j) {
+    const u128 cur = (u128)d[j] + (borrow ? f.p[j] : 0) + carry;
+    out[j] = (u64)cur;
+    carry = (u64)(cur >> 64);
+  }
 }
 
 // The chain's constants and the two Fp2 operations, in Montgomery form.
@@ -168,6 +184,52 @@ void hodor_cubic_vdf_witness(const u64* p_limbs, u64 inv, const u64* r2, const u
     ch.store(v1, out1 + 4 * i);
     ch.store(s0, outs0 + 4 * i);
     ch.store(s1, outs1 + 4 * i);
+  }
+}
+
+// Poseidon chain (models/poseidon.py): Starknet's Hades permutation of
+// width 3 (x^3, 4 full rounds, 83 partial, 4 full; MDS [[3,1,1],[1,-1,1],
+// [1,1,-2]]), one round a row, permutation after permutation. Row r is
+// round r mod 91: x = state + rc[round], a = x^3, k = rc[round], f = 1 in
+// a full round. rc: 91 x 3 canonical constants; start: the 3 elements of
+// the first state; out: the 10 registers (x0..x2, a0..a2, k0..k2, f), each
+// num_ops + 1 rows of 4 words.
+void hodor_poseidon_witness(const u64* p_limbs, u64 inv, const u64* r2, const u64* rc,
+                            const u64* start, long num_ops, u64* out) {
+  constexpr int kRounds = 91, kHalfFull = 4;
+  Fp f;
+  std::memcpy(f.p, p_limbs, 32);
+  f.inv = inv;
+  const long rows = num_ops + 1;
+  const u64 one[4] = {1, 0, 0, 0}, zero[4] = {0, 0, 0, 0};
+  u64 rc_m[kRounds][3][4], s[3][4];
+  for (int r = 0; r < kRounds; ++r)
+    for (int j = 0; j < 3; ++j) mont_mul(f, rc + 4 * (3 * r + j), r2, rc_m[r][j]);
+  for (int j = 0; j < 3; ++j) mont_mul(f, start + 4 * j, r2, s[j]);
+  auto reg = [&](int i, long row) { return out + 4 * (i * rows + row); };
+  for (long row = 0; row < rows; ++row) {
+    const int round = (int)(row % kRounds);
+    const bool full = round < kHalfFull || round >= kRounds - kHalfFull;
+    u64 x[3][4], a[3][4], y[3][4];
+    for (int j = 0; j < 3; ++j) {
+      add_mod(f, s[j], rc_m[round][j], x[j]);
+      mont_mul(f, x[j], x[j], a[j]);
+      mont_mul(f, a[j], x[j], a[j]);
+      mont_mul(f, x[j], one, reg(j, row));
+      mont_mul(f, a[j], one, reg(3 + j, row));
+      std::memcpy(reg(6 + j, row), rc + 4 * (3 * round + j), 32);
+      std::memcpy(y[j], (full || j == 2) ? a[j] : x[j], 32);
+    }
+    std::memcpy(reg(9, row), full ? one : zero, 32);
+    u64 t[4];
+    add_mod(f, y[0], y[2], t);            // y0 + y2
+    sub_mod(f, t, y[1], s[1]);            // y0 - y1 + y2
+    add_mod(f, t, y[1], s[0]);            // y0 + y1 + y2
+    sub_mod(f, s[0], y[2], s[2]);
+    sub_mod(f, s[2], y[2], s[2]);
+    sub_mod(f, s[2], y[2], s[2]);         // y0 + y1 - 2 y2
+    add_mod(f, s[0], y[0], s[0]);
+    add_mod(f, s[0], y[0], s[0]);         // 3 y0 + y1 + y2
   }
 }
 

@@ -336,13 +336,15 @@ def bench_ntt(args, dev):
 
 
 def reference_prove_estimate_s(prover, t_rows: int, lde_factor: int) -> float:
-    """bench.py:214-251, verbatim: a field-mul count model of the
-    reference prover on this instance (src/prover/mod.rs:66-174 stage by
-    stage) at the 6.4e8 muls/s 64-core anchor; Blake2s hashing excluded.
-    Terms (log2 T = lgT, D = T*max_power, h1 = T*lde, h2 = D*lde):
+    """bench.py:214-251, with the constraints domain's factor rounded up
+    to a power of two as the prover sizes it (4 at degree 3): a field-mul
+    count model of the reference prover on this instance
+    (src/prover/mod.rs:66-174 stage by stage) at the 6.4e8 muls/s 64-core
+    anchor; Blake2s hashing excluded. Terms (log2 T = lgT, e = max_power
+    rounded up to a power of two, D = T*e, h1 = T*lde, h2 = D*lde):
       witness iFFTs   R * (T/2) lgT
       f LDEs          R * lde * ((T/2) lgT + T)      coset shift + NTT
-      ALI G           M * p * ((T/2) lgT + T) + 5D   masked-term LDEs,
+      ALI G           M * e * ((T/2) lgT + T) + 5D   masked-term LDEs,
                                                      divisors + eval
       g iFFT + LDE    (D/2) lgD + lde * ((D/2) lgD + D)
       DEEP            (2M + 3) h1 + 2 h2             accumulation + inv
@@ -351,17 +353,17 @@ def reference_prove_estimate_s(prover, t_rows: int, lde_factor: int) -> float:
     props = prover.arp.properties
     r = props.num_registers
     m = len(prover.ali.all_masks)
-    p = prover.ali.max_constraint_power
+    e = 1 << (prover.ali.max_constraint_power - 1).bit_length()
     t, lde = t_rows, lde_factor
     lg_t = int(math.log2(t))
-    d = t * p
+    d = t * e
     lg_d = int(math.log2(d))
     h1 = t * lde
     h2 = d * lde
     muls = (
         r * (t // 2) * lg_t
         + r * lde * ((t // 2) * lg_t + t)
-        + m * p * ((t // 2) * lg_t + t) + 5 * d
+        + m * e * ((t // 2) * lg_t + t) + 5 * d
         + (d // 2) * lg_d + lde * ((d // 2) * lg_d + d)
         + (2 * m + 3) * h1 + 2 * h2
         + 3 * (h1 + h2)

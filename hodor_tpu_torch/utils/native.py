@@ -1,6 +1,7 @@
-"""ctypes bindings of the port's host library: the VDF witness chains on
-4 x 64-bit Montgomery words (csrc/host/vdf_witness.cpp), and keyed
-Blake2s with Merkle helpers on the host (csrc/host/blake2s.cpp).
+"""ctypes bindings of the port's host library: the models' witness chains
+(the VDFs' and Poseidon's) on 4 x 64-bit Montgomery words
+(csrc/host/vdf_witness.cpp), and keyed Blake2s with Merkle helpers on the
+host (csrc/host/blake2s.cpp).
 
 The library is compiled with g++ at first use into `build/` at the repo
 root under a hash of its sources, like the CUDA kernels
@@ -70,6 +71,9 @@ def _lib() -> ctypes.CDLL:
     lib.hodor_vdf_witness.restype = None
     lib.hodor_cubic_vdf_witness.argtypes = head + [u64p] * 4
     lib.hodor_cubic_vdf_witness.restype = None
+    lib.hodor_poseidon_witness.argtypes = [u64p, ctypes.c_uint64, u64p, u64p, u64p, ctypes.c_long,
+                                           u64p]
+    lib.hodor_poseidon_witness.restype = None
     c_char_p, c_long = ctypes.c_char_p, ctypes.c_long
     lib.hodor_blake2s.argtypes = [c_char_p, ctypes.c_int, c_char_p]
     lib.hodor_blake2s.restype = None
@@ -127,6 +131,20 @@ def cubic_vdf_witness_native(field: Field, c0: int, c1: int,
     outs = tuple(np.empty((num_ops + 1, 4), dtype=np.uint64) for _ in range(4))
     _lib().hodor_cubic_vdf_witness(*_chain_args(field, c0, c1, num_ops), *outs)
     return outs
+
+
+def poseidon_witness_native(field: Field, round_constants, start,
+                            num_ops: int) -> np.ndarray:
+    """The Poseidon chain of models/poseidon.py from the state `start` (3
+    elements), under round_constants (one triple a round): its 10
+    registers as a (10, num_ops + 1, 4) uint64 array of canonical
+    little-endian words."""
+    p, inv, r2 = _chain_args(field, 0, 0, num_ops)[:3]
+    rc = np.stack([_words4(v % field.p) for triple in round_constants for v in triple])
+    s0 = np.stack([_words4(v % field.p) for v in start])
+    out = np.empty((10, num_ops + 1, 4), dtype=np.uint64)
+    _lib().hodor_poseidon_witness(p, inv, r2, rc, s0, num_ops, out)
+    return out
 
 
 def u64_rows_to_ints(rows: np.ndarray) -> List[int]:

@@ -751,3 +751,28 @@ def test_main_path_proof_through_the_shared_body(dev, monkeypatch):
     levels = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1,
                     device=dev).prove(witness)
     assert serialize_proof(shared, F_STARK) == serialize_proof(levels, F_STARK)
+
+
+def test_poseidon_proof_on_the_card_equals_the_cpu(dev):
+    """The Poseidon chain at 2^12 rows (degree 3, 10 registers, lde 16):
+    the card's proof bytes equal the CPU's (which
+    tests/test_torch_poseidon.py holds against the plain reference at 2^7
+    and 2^8 rows), and the card's proof verifies."""
+    from hodor_tpu_torch.models import PoseidonChain
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.verifier import Verifier
+
+    witness, props = PoseidonChain(F_STARK, 5, 7, (1 << 12) - 1).into_arp()
+    blobs = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)  # the CPU prove of 2^12 rows
+    try:
+        for device in (dev, "cpu"):
+            proof = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1,
+                           device=device).prove(witness)
+            blobs.append(serialize_proof(proof, F_STARK))
+            assert Verifier(props, lde_factor=16).verify(proof)
+    finally:
+        torch.set_num_threads(threads)
+    assert blobs[0] == blobs[1]

@@ -26,7 +26,8 @@ from stark_bench.spec import Spec
 STAGES = ("witness+f_ldes+f_oracles", "g_composition+g_oracle", "deep", "fri_h1+h2", "queries")
 # every span name a first prove on one device records (PERF.md §3)
 SPANS = ("prover.init", "arp.route", "ali.tables", "encode_witness", "witness_polys", "lde",
-         "merkle.commit", "transcript", "ali.g", "ali.deep_quotients", "domain_points",
+         "merkle.commit", "transcript", "ali.g", "ali.terms", "ali.compose", "ali.boundary",
+         "ali.interpolant", "ali.deep_quotients", "domain_points",
          "fri.challenge", "fri.fold", "fri.fetch", "fri.prototype", "query.plan",
          "query.gather", "query.assemble", "ops.tables")
 
@@ -179,7 +180,9 @@ def _ctx(stages, latencies=(0.5, 0.5), lanes=1):
 SPANNED = {"prover.init": 0.04, "prover.init/ali.tables": 0.03,
            "witness+f_ldes+f_oracles": 0.2, "witness+f_ldes+f_oracles/encode_witness": 0.006,
            "transcript": 0.001, "g_composition+g_oracle": 0.3,
-           "g_composition+g_oracle/ali.g/transcript": 0.0005, "deep": 0.1,
+           "g_composition+g_oracle/ali.g/transcript": 0.0005,
+           "g_composition+g_oracle/ali.g/ali.terms": 0.08,
+           "g_composition+g_oracle/ali.g/ali.compose": 0.05, "deep": 0.1,
            "deep/ali.deep_quotients/transcript": 0.0005, "fri_h1+h2": 0.2, "queries": 0.1,
            "queries/query.assemble": 0.004}
 
@@ -194,6 +197,12 @@ SPANNED = {"prover.init": 0.04, "prover.init/ali.tables": 0.03,
     ("protocol.encode_witness_s", {"batch:witness+f_ldes+f_oracles/encode_witness": 0.003,
                                    "witness+f_ldes+f_oracles (resumed)/encode_witness": 0.001},
      0.002),
+    ("ali.terms_s", SPANNED, 0.04),
+    ("ali.compose_s", SPANNED, 0.025),
+    ("ali.terms_s", {"batch:g_composition+g_oracle/ali.g/ali.terms": 0.02}, 0.01),
+    ("ali.compose_s", {"batch:g_composition+g_oracle/ali.g/ali.compose": 0.02}, 0.01),
+    ("ali.terms_s", {"deep": 0.1}, None),
+    ("ali.compose_s", {"deep": 0.1}, None),
     ("prover.init_s", {"deep": 0.1}, None),
     ("protocol.encode_witness_s", {"deep": 0.1}, None),
     ("protocol.transcript_s", {"deep": 0.1}, None),
