@@ -31,7 +31,9 @@ Phases, each reported on its own line:
      butterfly body with the limb body beside it, at every x = p - 1 too;
      addsub in each of its three bodies (flat, grid, general) at every
      width, p - 1 against p - 1, 0 and 1 and ragged sizes among them,
-     and fri_fold with a ragged half, interleaved halves and lanes at
+     and fri_fold (its challenge drawn from a root, its twiddles from the
+     ladder's tables) at the first rounds of a 2^20-row prove, with a
+     ragged half, interleaved halves, lanes, a stride and an offset at
      every width; for every case three times: `ms`, CUDA events around
      calls issued back to back after a warm-up (the host's time where it
      exceeds the card's); `device_ms`, the card's time of one call, from
@@ -226,6 +228,14 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def random_root(shape, gen, device):
+    """Seeded (..., 8) int32 Merkle root digests, every bit pattern."""
+    import torch
+
+    return torch.randint(-1 << 31, 1 << 31, shape + (8,), generator=gen,
+                         dtype=torch.int64).to(torch.int32).to(device)
+
+
 def random_canonical(field, shape, gen, device):
     """Seeded uniform limbs with the top limb cut below p's top bit, so
     every value is < p (a valid Montgomery-form element)."""
@@ -243,6 +253,7 @@ def phase_kernels(dev):
 
     from hodor_tpu_torch.field import F257, F_BLS, F_P63, F_STARK, LimbOps
     from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.fri.fri import fold_twiddles
     from hodor_tpu_torch.merkle.blake2s import keyed_midstate
     from hodor_tpu_torch.ntt import matmul as M
     from hodor_tpu_torch.tools.launch_cost import device_time_ms, host_time_us
@@ -414,40 +425,42 @@ def phase_kernels(dev):
 
     # the FRI fold at the first rounds of the h1 and h2 ladders of a
     # 2^20-row prove (2^24 and 2^25 values), lo and hi the two halves of
-    # one tensor, and at edge sizes
-    two_inv = ops.two_inv_m
-    c_scaled = ops.mul(random_canonical(field, (), gen, dev), two_inv)
+    # one tensor, the challenge drawn from a root and the twiddles from the
+    # ladder's tables of the round's domain; and at edge sizes
+    root = random_root((), gen, dev)
     for half, label in ((1 << 23, "half=2^23"), (1 << 24, "half=2^24"), (1, "half=1"),
                         (3, "half=3")):
         values = random_canonical(field, (2 * half,), gen, dev)
-        wv = random_canonical(field, (half,), gen, dev)
+        fold_tw = fold_twiddles(ops, (2 * half - 1).bit_length())
         lo, hi = values[:half], values[half:]
         big = half > 3
         compare("fri_fold", label,
-                lambda: K.fri_fold(field, lo, hi, wv, c_scaled, two_inv),
-                lambda: K.fri_fold_plain(field, lo, hi, wv, c_scaled, two_inv),
-                nbytes(values, wv, c_scaled, two_inv), half * ops_fri_fold(16),
+                lambda: K.fri_fold(field, lo, hi, root, fold_tw, 1),
+                lambda: K.fri_fold_round_plain(field, lo, hi, root, fold_tw, 1),
+                nbytes(values, fold_tw.lo, fold_tw.hi), half * ops_fri_fold(16),
                 reps=5 if big else 20, plain_reps=1 if big else 3)
-        del values, wv, lo, hi
+        del values, lo, hi
     # the fold with a lane axis, one launch for all lanes: the first h1
-    # round of a 2^20-row batch of two proofs, and ragged lanes
-    for lanes, half, label in ((2, 1 << 23, "B=2 half=2^23 (batch)"),
-                               (3, 1001, "B=3 half=1001 (batch, ragged)")):
+    # round of a 2^20-row batch of two proofs, and ragged lanes at an
+    # offset and a stride, as a mesh block's later round
+    for lanes, half, stride, first, label in (
+            (2, 1 << 23, 1, 0, "B=2 half=2^23 (batch)"),
+            (3, 1001, 8, 5, "B=3 half=1001 stride=8 first=5 (batch, ragged)")):
         values = random_canonical(field, (lanes, 2 * half), gen, dev)
-        wv = random_canonical(field, (half,), gen, dev)
-        cs = ops.mul(random_canonical(field, (lanes,), gen, dev), two_inv)
+        roots = random_root((lanes,), gen, dev)
+        fold_tw = fold_twiddles(ops, 24)
         lo, hi = values[:, :half], values[:, half:]
         before = K.launch_counts["fri_fold"]
-        K.fri_fold(field, lo, hi, wv, cs, two_inv)
+        K.fri_fold(field, lo, hi, roots, fold_tw, stride, first)
         if K.launch_counts["fri_fold"] != before + 1:
             raise AssertionError("the fold of all lanes must be one launch")
         big = half > 1001
         compare("fri_fold", label,
-                lambda: K.fri_fold(field, lo, hi, wv, cs, two_inv),
-                lambda: K.fri_fold_plain(field, lo, hi, wv, cs, two_inv),
-                nbytes(values, wv, cs, two_inv), lanes * half * ops_fri_fold(16),
+                lambda: K.fri_fold(field, lo, hi, roots, fold_tw, stride, first),
+                lambda: K.fri_fold_round_plain(field, lo, hi, roots, fold_tw, stride, first),
+                nbytes(values, fold_tw.lo, fold_tw.hi), lanes * half * ops_fri_fold(16),
                 reps=5 if big else 20, plain_reps=1 if big else 3)
-        del values, wv, cs, lo, hi
+        del values, roots, lo, hi
 
     # the two-step level's reduce and the fused level at 2^20 elements:
     # the exact columns of x's byte-plane DFT (252 B per element), then
@@ -688,6 +701,7 @@ def kernel_cases_off_f_stark(dev, field, gen, compare, log_n: int = 20):
 
     from hodor_tpu_torch.field import LimbOps
     from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.fri.fri import fold_twiddles
     from hodor_tpu_torch.ntt import matmul as M
 
     ops = LimbOps(field, dev)
@@ -722,45 +736,45 @@ def kernel_cases_off_f_stark(dev, field, gen, compare, log_n: int = 20):
                 lambda: K.addsub(field, a, b, mode), lambda: K.addsub_plain(field, a, b, mode),
                 nbytes(a, b), n * ops_addsub(n16))
     addsub_body_cases(dev, field, compare, a, b)
-    c_scaled = ops.mul(random_canonical(field, (), gen, dev), ops.two_inv_m)
-    wv = random_canonical(field, (n // 2,), gen, dev)
+    root = random_root((), gen, dev)
+    fold_tw = fold_twiddles(ops, log_n)
     lo, hi = a[:n // 2], a[n // 2:]
     compare("fri_fold", f"{tag} half=2^{log_n - 1}",
-            lambda: K.fri_fold(field, lo, hi, wv, c_scaled, ops.two_inv_m),
-            lambda: K.fri_fold_plain(field, lo, hi, wv, c_scaled, ops.two_inv_m),
-            nbytes(a, wv, c_scaled, ops.two_inv_m), n // 2 * ops_fri_fold(n16), reps=5,
-            plain_reps=1)
-    # a ragged half (no multiple of a block) with every input p - 1, the
-    # interleaved halves, and lanes
+            lambda: K.fri_fold(field, lo, hi, root, fold_tw, 1),
+            lambda: K.fri_fold_round_plain(field, lo, hi, root, fold_tw, 1),
+            nbytes(a, fold_tw.lo, fold_tw.hi), n // 2 * ops_fri_fold(n16), reps=5, plain_reps=1)
+    # a ragged half (no multiple of a block) with every input p - 1 (the
+    # values, the tables and a root of all ones), the interleaved halves,
+    # and lanes
     worst = worst_case(field, (n,), dev)
+    worst_tw = K.PowerTwiddle(K.pack_words(worst[:fold_tw.lo.shape[0]]),
+                              K.pack_words(worst[:fold_tw.hi.shape[0]]), fold_tw.shift)
+    ones = torch.full((8,), -1, dtype=torch.int32, device=dev)
     h = n // 2 - 3
     compare("fri_fold", f"{tag} half=2^{log_n - 1}-3, all p-1",
-            lambda: K.fri_fold(field, worst[:h], worst[h:2 * h], worst[:h], worst[0], worst[1]),
-            lambda: K.fri_fold_plain(field, worst[:h], worst[h:2 * h], worst[:h], worst[0],
-                                     worst[1]),
-            nbytes(worst[:3 * h], worst[0], worst[1]), h * ops_fri_fold(n16), reps=5,
+            lambda: K.fri_fold(field, worst[:h], worst[h:2 * h], ones, worst_tw, 2, 7),
+            lambda: K.fri_fold_round_plain(field, worst[:h], worst[h:2 * h], ones, worst_tw, 2, 7),
+            nbytes(worst[:2 * h], worst_tw.lo, worst_tw.hi), h * ops_fri_fold(n16), reps=5,
             plain_reps=1)
     compare("fri_fold", f"{tag} half=2^{log_n - 1}, interleaved halves",
-            lambda: K.fri_fold(field, a[0::2], a[1::2], wv, c_scaled, ops.two_inv_m),
-            lambda: K.fri_fold_plain(field, a[0::2], a[1::2], wv, c_scaled, ops.two_inv_m),
-            nbytes(a, wv, c_scaled, ops.two_inv_m), n // 2 * ops_fri_fold(n16), reps=5,
-            plain_reps=1)
-    del worst
+            lambda: K.fri_fold(field, a[0::2], a[1::2], root, fold_tw, 1),
+            lambda: K.fri_fold_round_plain(field, a[0::2], a[1::2], root, fold_tw, 1),
+            nbytes(a, fold_tw.lo, fold_tw.hi), n // 2 * ops_fri_fold(n16), reps=5, plain_reps=1)
+    del worst, worst_tw
     for lanes, half in ((3, 1001), (2, n // 4)):
         values = random_canonical(field, (lanes, 2 * half), gen, dev)
-        wl = wv[:half]
-        cs = ops.mul(random_canonical(field, (lanes,), gen, dev), ops.two_inv_m)
+        roots = random_root((lanes,), gen, dev)
         lo, hi = values[:, :half], values[:, half:]
         before = K.launch_counts["fri_fold"]
-        K.fri_fold(field, lo, hi, wl, cs, ops.two_inv_m)
+        K.fri_fold(field, lo, hi, roots, fold_tw, 2)
         if K.launch_counts["fri_fold"] != before + 1:
             raise AssertionError(f"{tag}: the fold of all lanes must be one launch")
         compare("fri_fold", f"{tag} B={lanes} half={half} (batch)",
-                lambda: K.fri_fold(field, lo, hi, wl, cs, ops.two_inv_m),
-                lambda: K.fri_fold_plain(field, lo, hi, wl, cs, ops.two_inv_m),
-                nbytes(values, wl, cs, ops.two_inv_m), lanes * half * ops_fri_fold(n16),
-                reps=5, plain_reps=1)
-    del a, b, wv, lo, hi, values
+                lambda: K.fri_fold(field, lo, hi, roots, fold_tw, 2),
+                lambda: K.fri_fold_round_plain(field, lo, hi, roots, fold_tw, 2),
+                nbytes(values, fold_tw.lo, fold_tw.hi), lanes * half * ops_fri_fold(n16), reps=5,
+                plain_reps=1)
+    del a, b, lo, hi, values, roots
 
     ninv = ops.const(field.inv(n))
     quarter, half = n // 4, n // 2

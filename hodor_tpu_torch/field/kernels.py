@@ -38,8 +38,11 @@ layout by one rule ("flat", "grid", "general"; `mont_mul_body`,
 `addsub_body_counts`. The three elementwise wrappers (`mont_mul`,
 `addsub`, `fri_fold`) keep the launch arguments of every operand layout
 they have seen, so a repeated layout costs no broadcast or collapse.
-`fri_fold` takes an optional leading lane axis, one proof of a batch a
-lane with its own challenge, all lanes in one launch.
+`fri_fold` makes its round's challenge from the previous tree's root
+digest and its twiddles from two tables of about sqrt(N) entries on the
+card, so a FRI round asks nothing of the host but its launch; it takes
+an optional leading lane axis, one proof of a batch a lane with its own
+root, all lanes in one launch.
 
 Every wrapper dispatches on the device of its tensors and nothing else:
 a CPU tensor takes the plain version beside it (int64 torch ops, the
@@ -179,7 +182,8 @@ def _bind(lib):
                                               vp]
     lib.hodor_ntt_level_pass.argtypes = [i32, vp, vp, vp, i64, i32, i64, vp, i32, vp, vp, i32, vp,
                                          u32, u32, vp]
-    lib.hodor_fri_fold.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, u32, vp]
+    lib.hodor_fri_fold.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp, u32, vp,
+                                   vp, u32, vp]
     lib.hodor_wide_reduce.argtypes = [i32, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
     lib.hodor_dft_reduce.argtypes = [i32, vp, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp,
                                      i32, vp]
@@ -1100,15 +1104,77 @@ def ntt_level_shared(field: Field, x, roots, tw=None, out=None):
 def fri_fold_plain(field: Field, lo, hi, w, c_scaled, inv2):
     """mont(mont(lo - hi, w), c_scaled) + mont(lo + hi, inv2) on the plain
     add, sub and mul: with c_scaled = c/2 and inv2 = 1/2 this is the fold
-    ((lo + hi) + c * w * (lo - hi)) / 2. With a lane axis, lo and hi are
-    (B, half, n16), w (half, n16) is shared and c_scaled (B, n16) holds one
-    challenge per lane."""
+    ((lo + hi) + c * w * (lo - hi)) / 2 for explicit twiddles w. With a
+    lane axis, lo and hi are (B, half, n16), w (half, n16) is shared and
+    c_scaled (B, n16) holds one challenge per lane."""
     if c_scaled.dim() == 2:
         c_scaled = c_scaled[:, None, :]
     odd = mont_mul_plain(field, mont_mul_plain(field, addsub_plain(field, lo, hi, "sub"), w),
                          c_scaled)
     even = mont_mul_plain(field, addsub_plain(field, lo, hi, "add"), inv2)
     return addsub_plain(field, odd, even, "add")
+
+
+@lru_cache(maxsize=None)
+def _shave_mask(field: Field) -> int:
+    """The mask Field.from_be_with_shave puts on the repr_size bytes it
+    reads: every bit but the top u64 limb's shaved ones."""
+    top = 64 * (field.n64 - 1)
+    return ((1 << top) - 1) | ((0xFFFFFFFFFFFFFFFF >> ((256 - field.capacity) % 64)) << top)
+
+
+@lru_cache(maxsize=None)
+def _fold_field_args(field: Field):
+    """What a fold launch passes beside `_field_args`: R^2 mod p and the
+    challenge's shave mask as ctypes words, and the words of p that are 0."""
+    nw = field.n16 // 2
+    return (_u32_array(_words(field.R2_mod_p, nw)), _u32_array(_words(_shave_mask(field), nw)),
+            _zero_words(field))
+
+
+def fold_challenge_plain(field: Field, roots):
+    """(..., 8) int32 root digests -> (..., n16) Montgomery limbs of the
+    challenge each draws, as the fri_fold kernel derives it: canonical
+    word i is digest word n16/2 - 1 - i byte-swapped (repr_size bytes read
+    big-endian), shaved, times R^2. Field.from_be_with_shave of the
+    root's bytes."""
+    nw, n16 = field.n16 // 2, field.n16
+    d = roots[..., :nw].flip(-1).to(torch.int64) & 0xFFFFFFFF
+    x = (((d & 0xFF) << 24) | (((d >> 8) & 0xFF) << 16) | (((d >> 16) & 0xFF) << 8)
+         | ((d >> 24) & 0xFF))
+    x = x & torch.as_tensor(_words(_shave_mask(field), nw), dtype=torch.int64, device=d.device)
+    limbs = torch.stack([x & 0xFFFF, x >> 16], dim=-1).reshape(roots.shape[:-1] + (n16,))
+    r2 = torch.as_tensor(_int_limbs(field.R2_mod_p, n16), device=d.device)
+    return mont_mul_plain(field, limbs, r2)
+
+
+def _fold_log_n(tw: PowerTwiddle) -> int:
+    """log2 N of the N-point domain whose inverse-root tables tw holds."""
+    return (tw.hi.shape[0] << tw.shift).bit_length() - 1
+
+
+def fold_twiddles_plain(field: Field, tw: PowerTwiddle, half: int, stride: int, first: int = 0):
+    """(half, n16) limbs of W^(-e), e = ((first + j) stride) mod N for
+    j < half, as the fri_fold kernel makes them: tw.lo[e mod 2^shift]
+    times tw.hi[e >> shift]."""
+    n = 1 << _fold_log_n(tw)
+    j = torch.arange(half, dtype=torch.int64, device=tw.lo.device)
+    e = ((first + j) % (n // stride)) * stride
+    return mont_mul_plain(field, unpack_words(tw.lo)[e & ((1 << tw.shift) - 1)],
+                          unpack_words(tw.hi)[e >> tw.shift])
+
+
+def fri_fold_round_plain(field: Field, lo, hi, roots, tw: PowerTwiddle, stride: int,
+                         first: int = 0):
+    """The fri_fold kernel's function in torch ops: the challenge from the
+    roots (`fold_challenge_plain`), the twiddles from the tables
+    (`fold_twiddles_plain`), then `fri_fold_plain` with 1/2 as a product.
+    Every product is canonical and the kernel's halving exact, so its
+    association and its halving give the same limbs."""
+    inv2 = torch.as_tensor(_int_limbs(field.to_mont(field.inv(2)), field.n16), device=lo.device)
+    c_scaled = mont_mul_plain(field, fold_challenge_plain(field, roots), inv2)
+    w = fold_twiddles_plain(field, tw, lo.shape[-2], stride, first)
+    return fri_fold_plain(field, lo, hi, w, c_scaled, inv2)
 
 
 def _row_stride(t, name: str) -> int:
@@ -1128,74 +1194,92 @@ def _lane_stride(t, lanes, name: str) -> int:
     return t.stride(0)
 
 
-def _check_fold_shapes(field: Field, lo, hi, w, c_scaled, inv2):
-    if lo.dim() not in (2, 3) or lo.shape != hi.shape or lo.shape[-2:] != w.shape:
-        raise ValueError(f"lo, hi must share one (half, n16) or (B, half, n16) shape and w be "
-                         f"(half, n16), got {tuple(lo.shape)}, {tuple(hi.shape)}, "
-                         f"{tuple(w.shape)}")
-    c_shape = (field.n16,) if lo.dim() == 2 else (lo.shape[0], field.n16)
-    if tuple(c_scaled.shape) != c_shape or c_scaled.stride(-1) != 1:
-        raise ValueError(f"c_scaled must be unit-stride {c_shape} limbs, got "
-                         f"{tuple(c_scaled.shape)}")
-    if inv2.dim() != 1 or inv2.stride(0) != 1:
-        raise ValueError("inv2 must be a contiguous (n16,) scalar")
+def _check_fold_operands(field: Field, lo, hi, roots, tw: PowerTwiddle):
+    _check_limbs(field, lo, hi)
+    if lo.dim() not in (2, 3) or lo.shape != hi.shape:
+        raise ValueError(f"lo, hi must share one (half, n16) or (B, half, n16) shape, got "
+                         f"{tuple(lo.shape)}, {tuple(hi.shape)}")
+    r_shape = (8,) if lo.dim() == 2 else (lo.shape[0], 8)
+    if (roots.dtype != torch.int32 or tuple(roots.shape) != r_shape or roots.stride(-1) != 1
+            or roots.device != lo.device):
+        raise ValueError(f"roots must be unit-stride {r_shape} int32 digest words on "
+                         f"{lo.device}, got {tuple(roots.shape)} {roots.dtype}")
+    nw = field.n16 // 2
+    for t in (tw.lo, tw.hi):
+        if (t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != nw or not t.is_contiguous()
+                or t.device != lo.device):
+            raise ValueError(f"the fold's tables must be contiguous (entries, {nw}) int32 words "
+                             f"on {lo.device}")
+    m = tw.hi.shape[0]
+    if tw.lo.shape[0] != 1 << tw.shift or m & (m - 1):
+        raise ValueError("the fold's tables must hold 2^shift and a power of two entries")
 
 
-def _fold_strides(field: Field, lo, hi, w, c_scaled):
+def _fold_strides(field: Field, lo, hi, roots):
     """The geometry hodor_fri_fold reads, in int32 units: (out lane
-    stride, lo row and lane strides, hi row and lane strides, w row
-    stride, c_scaled lane stride, half, lanes)."""
+    stride, lo row and lane strides, hi row and lane strides, the roots'
+    lane stride, half, lanes)."""
     lanes = lo.shape[0] if lo.dim() == 3 else None
     half = lo.shape[-2]
     return (half * field.n16, _row_stride(lo, "lo"), _lane_stride(lo, lanes, "lo"),
-            _row_stride(hi, "hi"), _lane_stride(hi, lanes, "hi"), _row_stride(w, "w"),
-            _lane_stride(c_scaled, lanes, "c_scaled"), half, 1 if lanes is None else lanes)
+            _row_stride(hi, "hi"), _lane_stride(hi, lanes, "hi"),
+            0 if lanes is None else roots.stride(0), half, 1 if lanes is None else lanes)
 
 
-def fri_fold(field: Field, lo, hi, w, c_scaled, inv2, out=None):
-    """One FRI fold round, fused: mont(mont(lo - hi, w), c_scaled) +
-    mont(lo + hi, inv2), for one proof or for a batch of them in one
-    launch. lo, hi: (half, n16), or (B, half, n16) with one lane per proof;
-    row- and lane-strided views allowed (the two halves of the round's
-    values are read in place). w: (half, n16), shared by all lanes.
-    c_scaled (the round's challenge times 1/2): (n16,), or (B, n16) with a
-    lane axis; inv2 (1/2): (n16,). Montgomery limbs on one device. CPU:
-    plain version. CUDA: the fri_fold kernel, its layout checked and its
-    geometry worked out on a layout's first call only (as
-    `_elementwise_launch`)."""
+def fri_fold(field: Field, lo, hi, roots, tw: PowerTwiddle, stride: int, first: int = 0,
+             out=None):
+    """One FRI fold round whose challenge and twiddles are made where it
+    runs: output row j folds lo[j] and hi[j] (rows first + j and
+    first + j + K/2 of the round's K values) into ((lo + hi) + c W^(-e)
+    (lo - hi)) / 2, e = ((first + j) stride) mod N, for one proof or for a
+    batch of them in one launch.
+
+    lo, hi: (half, n16), or (B, half, n16) with one lane per proof; row-
+    and lane-strided views allowed (the two halves of the round's values
+    are read in place). roots: the previous tree's root digest, (8,) int32
+    words, or (B, 8) one per lane; c is the challenge it draws
+    (Field.from_be_with_shave of its bytes). tw: the l0 domain's
+    inverse-root tables, W^-1 over N = len(tw.hi) << tw.shift points
+    (ntt/matmul.py power_twiddles(ops, N, inverse=True)), shared by the
+    lanes. stride: the round's, a power of two up to N. Montgomery limbs
+    on one device. CPU: plain version (`fri_fold_round_plain`). CUDA: the
+    fri_fold kernel, its layout checked and its geometry worked out on a
+    layout's first call only (as `_elementwise_launch`)."""
+    log_n = _fold_log_n(tw)
+    if stride < 1 or stride & (stride - 1) or stride > 1 << log_n or first < 0:
+        raise ValueError(f"stride must be a power of two up to N = 2^{log_n} and first >= 0, "
+                         f"got {stride}, {first}")
     if lo.is_cuda:
         key = (field.n16, lo.shape, lo.stride(), lo.dtype, lo.device, hi.shape, hi.stride(),
-               hi.dtype, hi.device, w.shape, w.stride(), w.dtype, w.device, c_scaled.shape,
-               c_scaled.stride(), c_scaled.dtype, c_scaled.device, inv2.shape, inv2.stride(),
-               inv2.dtype, inv2.device)
+               hi.dtype, hi.device, roots.shape, roots.stride(), roots.dtype, roots.device,
+               tw.lo.shape, tw.lo.device, tw.hi.shape, tw.hi.device, tw.shift)
         geometry = _fold_launches.get(key)
         if geometry is None:
-            _check_limbs(field, lo, hi, w, c_scaled, inv2)
-            _check_fold_shapes(field, lo, hi, w, c_scaled, inv2)
+            _check_fold_operands(field, lo, hi, roots, tw)
         out = _out_tensor(out, lo.shape, lo)
         if out.numel() == 0:
             return out
         if geometry is None:
             geometry = _remember(_fold_launches, key,
-                                 _i64_array(_fold_strides(field, lo, hi, w, c_scaled)))
-        if lo.data_ptr() % 16 or hi.data_ptr() % 16 or w.data_ptr() % 16:
-            raise ValueError("lo, hi, w: rows must be unit-stride limbs at 16-byte aligned "
-                             "addresses")
-        if c_scaled.data_ptr() % 16 or inv2.data_ptr() % 16:
-            raise ValueError("c_scaled and inv2 must lie at 16-byte aligned addresses")
+                                 _i64_array(_fold_strides(field, lo, hi, roots)))
+        if lo.data_ptr() % 16 or hi.data_ptr() % 16:
+            raise ValueError("lo and hi must lie at 16-byte aligned addresses")
+        if tw.lo.data_ptr() % 16 or tw.hi.data_ptr() % 16:
+            raise ValueError("the fold's tables must lie at 16-byte aligned addresses")
         p_words, pinv0, _ = _field_args(field)
+        r2_words, mask_words, zero_words = _fold_field_args(field)
         code = _kernels().hodor_fri_fold(
-            field.n16, out.data_ptr(), lo.data_ptr(), hi.data_ptr(), w.data_ptr(),
-            c_scaled.data_ptr(), inv2.data_ptr(), geometry, p_words, pinv0, _stream(),
+            field.n16, out.data_ptr(), lo.data_ptr(), hi.data_ptr(), roots.data_ptr(),
+            tw.lo.data_ptr(), tw.hi.data_ptr(), geometry, first, stride.bit_length() - 1, log_n,
+            tw.shift, p_words, pinv0, r2_words, mask_words, zero_words, _stream(),
         )
         _check(code, "fri_fold")
         launch_counts["fri_fold"] += 1
         return out
-    _check_limbs(field, lo, hi, w, c_scaled, inv2)
-    _check_fold_shapes(field, lo, hi, w, c_scaled, inv2)
+    _check_fold_operands(field, lo, hi, roots, tw)
     if not lo.is_cpu:
         raise ValueError(f"unsupported device {lo.device}")
-    res = fri_fold_plain(field, lo, hi, w, c_scaled, inv2)
+    res = fri_fold_round_plain(field, lo, hi, roots, tw, stride, first)
     if out is None:
         return res
     out.copy_(res)

@@ -147,7 +147,12 @@ class LimbOps:
         self.tables: dict = {}
 
     def _limbs(self, value: int) -> torch.Tensor:
-        return torch.as_tensor(int_to_limbs(value, self.n16).astype(np.int32), device=self.device)
+        """(n16,) limbs of a Python int on the device; on the card copied
+        from pinned memory, so the host does not wait for the queue."""
+        host = torch.from_numpy(int_to_limbs(value, self.n16).astype(np.int32))
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     # -- encode / decode (host) --
 

@@ -6,11 +6,12 @@ The fold recurrence per round i over values v of length K
     next[j] = (v[j] + v[j+K/2] + c * w^{-j*2^i} * (v[j] - v[j+K/2])) / 2
 
 with w the FULL lde-domain generator; each round Merkle-commits `next`
-and derives the next challenge from the root. Every round folds through
-the fused fri_fold kernel (field/kernels.py), one pass over lo, hi and
-the twiddles; the challenge comes from each root on the device
-(digest_to_challenge_mont) and stays there, since FRI fold challenges
-never touch the transcript.
+and derives the next challenge from the root. A round is one launch of
+the fri_fold kernel (field/kernels.py) and one tree: the kernel draws
+the challenge from the previous root on the device, since FRI fold
+challenges never touch the transcript, and makes each w from two tables
+of the l0 domain's inverse roots (`fold_twiddles`, built once per
+domain size), so no round copies to the device or waits for it.
 
 Under a mesh (parallel/) the ladder runs on the ranks' row blocks of
 h1 and h2 (parallel/fri.py), and the query walk opens its sharded layers
@@ -18,8 +19,9 @@ through the owners' blocks.
 
 The ladder also runs for a batch of proofs at once (Prover.prove_batch,
 the port of hodor_tpu/fri/fri.py fri_chain_pair_batch): the values carry
-a leading lane axis, (B, N, L), and each round is one batched tree, one
-(B, L) vector of challenges and one fold launch for all lanes.
+a leading lane axis, (B, N, L), and each round is one batched tree and
+one fold launch for all lanes, each lane's challenge drawn from its own
+root.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..merkle.blake2s import digest_to_challenge_mont
 from ..merkle.tree import (IopQuery, MerkleTree, digest_to_bytes, keep_roots, take_rows,
                            verify_path)
 from ..ntt import intt, lde
+from ..ntt.matmul import power_twiddles
 from ..parallel.multihost import ShardedMerkleTree, sharded_openings
 from ..profiling import span
 
@@ -90,55 +93,69 @@ class FRIProof:
     lde_factor: int
 
 
-def fold_round(ops: LimbOps, values, challenge_limbs, stride: int, log_domain: int):
+def fold_twiddles(ops: LimbOps, log_domain: int) -> kernels.PowerTwiddle:
+    """The inverse-root tables of the 2^log_domain l0 domain that every
+    round's fold reads its twiddles from: W^-e for e < 2^shift and
+    W^(-e 2^shift), about sqrt(N) entries each, the NTT plan's inverse
+    power twiddles of that length (ntt/matmul.py), built on the first
+    call into `ops.tables` and shared with the NTT where it holds them."""
+    return power_twiddles(ops, 1 << log_domain, True)
+
+
+def fold_round(ops: LimbOps, values, root, stride: int, log_domain: int):
     """One FRI fold (src/fri/fri_on_values.rs:70-105). values: (K, L), or
-    (B, K, L) for a batch; challenge_limbs: (L,) Montgomery, or (B, L) one
-    per lane. The two halves of `values` are read in place (fold_pair)."""
+    (B, K, L) for a batch; root: the (8,) root digest of the tree whose
+    challenge the fold draws, or (B, 8) one per lane. The two halves of
+    `values` are read in place (fold_pair)."""
     half = values.shape[-2] // 2
-    return fold_pair(ops, values[..., :half, :], values[..., half:2 * half, :], challenge_limbs,
-                     stride, log_domain)
+    return fold_pair(ops, values[..., :half, :], values[..., half:2 * half, :], root, stride,
+                     log_domain)
 
 
-def fold_pair(ops: LimbOps, lo, hi, challenge_limbs, stride: int, log_domain: int,
-              first: int = 0):
+def fold_pair(ops: LimbOps, lo, hi, root, stride: int, log_domain: int, first: int = 0):
     """Rows first, first + 1, ... of a fold whose rows j pair lo[j - first]
-    with hi[j - first] (the rows j and j + K/2 of the round's values):
-    the round's twiddles w_j = W^(-j*stride) from j = first, W the
-    generator of the 2^log_domain l0 domain, shared by the lanes. The fold
-    is the kernel's association mont(mont(lo-hi, w), c/2) + mont(lo+hi,
-    1/2): the same canonical limbs as (lo+hi + c*w*(lo-hi))/2 in any
-    order."""
-    p = ops.field.p
+    with hi[j - first] (the rows j and j + K/2 of the round's values), in
+    one fri_fold launch: the challenge drawn from `root` and the twiddles
+    w_j = W^(-j*stride) from j = first, W the generator of the
+    2^log_domain l0 domain, both made by the kernel."""
     with span("fri.fold"):
-        step = pow(Domain.new_for_size(ops.field, 1 << log_domain).generator_inv, stride, p)
-        start = ops.const(pow(step, first, p)) if first else None
-        w = ops.powers(ops.const(step), lo.shape[-2], start=start)
-        c_scaled = ops.mul(challenge_limbs, ops.two_inv_m)
-        return kernels.fri_fold(ops.field, lo, hi, w, c_scaled, ops.two_inv_m)
+        return kernels.fri_fold(ops.field, lo, hi, root, fold_twiddles(ops, log_domain), stride,
+                                first)
+
+
+def fold_pair_composed(ops: LimbOps, lo, hi, root, stride: int, log_domain: int,
+                       first: int = 0):
+    """`fold_pair` composed from the separate steps, as the ladder made
+    them before the kernel drew its own inputs: the challenge from the
+    root (digest_to_challenge_mont), the K/2 twiddles from `ops.powers`,
+    then the explicit-twiddle fold (`kernels.fri_fold_plain`). The
+    reference the kernel and its plain version are held to."""
+    p = ops.field.p
+    step = pow(Domain.new_for_size(ops.field, 1 << log_domain).generator_inv, stride, p)
+    start = ops.const(pow(step, first, p)) if first else None
+    w = ops.powers(ops.const(step), lo.shape[-2], start=start)
+    c_scaled = ops.mul(digest_to_challenge_mont(ops, root), ops.two_inv_m)
+    return kernels.fri_fold_plain(ops.field, lo, hi, w, c_scaled, ops.two_inv_m)
 
 
 def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int, first_round: int = 0):
-    """The FRI prover ladder: commit the first layer, then per round fold
-    -> tree -> root -> next challenge, the root -> challenge step on the
-    device. lde_values (N, L), or (B, N, L): every lane's round in one
+    """The FRI prover ladder: commit the first layer, then per round one
+    fold, which draws its challenge from the last root on the device, and
+    one tree. lde_values (N, L), or (B, N, L): every lane's round in one
     tree build and one fold launch. first_round: the round the first
     layer is at (a mesh ladder's tail starts after its sharded rounds).
 
     Returns (trees, intermediate values, final coefficients (K, L) or
     (B, K, L))."""
+    fold_twiddles(ops, log_domain)  # built here, if at all: no round builds a table
     with span("merkle.commit"):
         trees = [MerkleTree.create(lde_values, ops.field)]
-    with span("fri.challenge"):
-        challenge = digest_to_challenge_mont(ops, trees[0].root_digest())
     values = lde_values
     intermediate = []
     for i in range(first_round, first_round + num_steps):
-        values = fold_round(ops, values, challenge, 1 << i, log_domain)
+        values = fold_round(ops, values, trees[-1].root_digest(), 1 << i, log_domain)
         with span("merkle.commit"):
-            tree = MerkleTree.create(values, ops.field)
-        trees.append(tree)
-        with span("fri.challenge"):
-            challenge = digest_to_challenge_mont(ops, tree.root_digest())
+            trees.append(MerkleTree.create(values, ops.field))
         intermediate.append(values)
     return trees, intermediate, intt(ops, values)
 

@@ -239,15 +239,17 @@ def pass_roots(ops: LimbOps, size: int, inverse: bool) -> torch.Tensor:
 
 def power_twiddles(ops: LimbOps, n: int, inverse: bool) -> kernels.PowerTwiddle:
     """The four-step twiddles w_N^e, e < n, as two tables of about sqrt(n)
-    entries each: w_N^lo and w_N^(hi 2^shift)."""
+    entries each: w_N^lo and w_N^(hi 2^shift). The second is the first's
+    leading n >> shift entries raised to 2^shift, one `mont_pow` launch in
+    place of a second `powers`."""
     key = ("power_twiddle", n, inverse)
     if key not in ops.tables:
         with span("ops.tables"):
             domain = Domain.new_for_size(ops.field, n)
             w = domain.generator_inv if inverse else domain.generator
-            shift = n.bit_length() // 2  # ceil(log2(n) / 2)
+            shift = n.bit_length() // 2  # ceil(log2(n) / 2): n >> shift <= 2^shift
             lo = ops.powers(ops.const(w), 1 << shift)
-            hi = ops.powers(ops.const(pow(w, 1 << shift, ops.field.p)), max(1, n >> shift))
+            hi = ops.pow_static(lo[:max(1, n >> shift)], 1 << shift)
             ops.tables[key] = kernels.PowerTwiddle(kernels.pack_words(lo), kernels.pack_words(hi),
                                                    shift)
     return ops.tables[key]
@@ -357,6 +359,9 @@ def ntt_matmul(ops: LimbOps, x, inverse: bool = False, scale=None, out=None):
 
 def intt_matmul(ops: LimbOps, x):
     """Inverse NTT over axis -2 of (..., N, n16) with the 1/N scale, which
-    rides in the terminal level."""
+    rides in the terminal level (made once per length into `ops.tables`)."""
     n = x.shape[-2]
-    return ntt_matmul(ops, x, inverse=True, scale=ops.const(ops.field.inv(n % ops.field.p)))
+    key = ("inv_n", n)
+    if key not in ops.tables:
+        ops.tables[key] = ops.const(ops.field.inv(n % ops.field.p))
+    return ntt_matmul(ops, x, inverse=True, scale=ops.tables[key])

@@ -13,20 +13,19 @@ round lie in an owner order (`fold_order`): after one round from the
 natural order rank r holds block 2r and rank r + W/2 block 2r + 1.
 
 Each sharded layer is committed as a ShardedMerkleTree over the blocks in
-that order, and its challenge comes from the replicated root on the
-device, as on one device: the ladder adds no host fetch. Layer 0 is
-always sharded (DEEP leaves h1 and h2 so). From the first folded layer
-whose block has fewer than TAIL_ROWS rows on, the ladder gathers once
-and finishes whole on every rank with fri_chain and its final intt; a
-ladder that is sharded to its last layer gathers that layer for the
-intt.
+that order, and the next fold draws its challenge from the replicated
+root on the device, as on one device: the ladder adds no host fetch.
+Layer 0 is always sharded (DEEP leaves h1 and h2 so). From the first
+folded layer whose block has fewer than TAIL_ROWS rows on, the ladder
+gathers once and finishes whole on every rank with fri_chain and its
+final intt; a ladder that is sharded to its last layer gathers that
+layer for the intt.
 """
 
 from __future__ import annotations
 
-from ..fri.fri import fold_pair, fri_chain
+from ..fri.fri import fold_pair, fold_twiddles, fri_chain
 from ..field.limbs import from_numpy_limbs
-from ..merkle.blake2s import digest_to_challenge_mont
 from ..merkle.tree import MerkleTree
 from ..ntt import intt
 from ..profiling import span
@@ -62,12 +61,12 @@ def ladder_orders(n: int, w: int, num_steps: int):
     return orders
 
 
-def fold_block(ops, block, order, challenge, stride: int, log_domain: int, mesh):
+def fold_block(ops, block, order, root, stride: int, log_domain: int, mesh):
     """One fold round on row blocks. block: this rank's (K/W, L) block of
-    the round's values, natural block order.index(rank); challenge: the
-    round's (L,) Montgomery challenge, the same on every rank. Returns
-    this rank's (K/2W, L) block of the folded values, in the owner order
-    fold_order(order)."""
+    the round's values, natural block order.index(rank); root: the (8,)
+    root digest the round's challenge is drawn from, the same on every
+    rank. Returns this rank's (K/2W, L) block of the folded values, in the
+    owner order fold_order(order)."""
     half = mesh.size() // 2
     b = block.shape[-2]
     k = order.index(mesh.get_local_rank())
@@ -78,7 +77,7 @@ def fold_block(ops, block, order, challenge, stride: int, log_domain: int, mesh)
     got = all_to_all_v(give, splits, splits, mesh)
     lo, hi = (keep, got) if keep_lo else (got, keep)
     first = k * b if keep_lo else (k - half) * b + b // 2
-    return fold_pair(ops, lo, hi, challenge, stride, log_domain, first)
+    return fold_pair(ops, lo, hi, root, stride, log_domain, first)
 
 
 def sharded_fri_chain(ops, block, num_steps: int, log_domain: int, mesh):
@@ -88,6 +87,7 @@ def sharded_fri_chain(ops, block, num_steps: int, log_domain: int, mesh):
     values of those layers), the tail's MerkleTrees over whole values, and
     the final coefficients whole, on every rank."""
     orders = ladder_orders(block.shape[-2] * mesh.size(), mesh.size(), num_steps)
+    fold_twiddles(ops, log_domain)  # built here, if at all: no round builds a table
     values, trees, intermediate = block, [], []
     for i, order in enumerate(orders):
         if order is None:  # the tail: gather once, finish whole
@@ -99,9 +99,8 @@ def sharded_fri_chain(ops, block, num_steps: int, log_domain: int, mesh):
             trees.append(ShardedMerkleTree.create(values, ops.field, mesh, order))
         if i == num_steps:
             break
-        with span("fri.challenge"):
-            challenge = digest_to_challenge_mont(ops, trees[-1].root_digest())
-        values = fold_block(ops, values, order, challenge, 1 << i, log_domain, mesh)
+        values = fold_block(ops, values, order, trees[-1].root_digest(), 1 << i, log_domain,
+                            mesh)
         intermediate.append(values)
     return trees, intermediate, intt(ops, gather_rows(values, mesh, orders[-1]))
 

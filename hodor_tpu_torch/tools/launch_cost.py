@@ -11,7 +11,10 @@ ONLY keeps the cases whose kernel and case name contain it (F_P63, say).
 
 For each case of `chip_smoke.py` phase 3 that runs `mont_mul`, `addsub`
 or `fri_fold` (at F_STARK's, F_BLS's and F_P63's widths, 2^20 elements;
-and F_P63 at its prove's 2^24 elements), one JSON line: `host_us`, the
+the fold at half 2^23 and 2^24; and F_P63 at its prove's 2^24
+elements), and for a whole FRI round's fold as ROOT's ladder makes it
+(`fri round`: with the challenge drawn apart and the twiddles built by
+`fold_pair` where ROOT's fold takes them), one JSON line: `host_us`, the
 host clock over `HOST_REPS` calls with no synchronisation, divided by
 the calls (the median of `HOST_BATCHES` such batches, `host_time_us`);
 `device_ms`, the device time of one call, from `DEVICE_REPS` calls
@@ -168,12 +171,53 @@ def _canonical(field, shape, gen, device):
     return limbs.to(device)
 
 
+def _fold_case(K, fri, field, ops, lo, hi, gen, dev):
+    """A call of ROOT's fold wrapper on lo and hi as round 0 of their
+    ladder: where ROOT's `fri_fold` takes explicit twiddles w (the form
+    before the kernel made its own inputs), w and c/2 are made here,
+    outside the call; else the call draws c from a root and w from the
+    ladder's tables."""
+    import inspect
+
+    half = lo.shape[-2]
+    if "w" in inspect.signature(K.fri_fold).parameters:
+        w = _canonical(field, (half,), gen, dev)
+        c_scaled = ops.mul(_canonical(field, (), gen, dev), ops.two_inv_m)
+        return lambda: K.fri_fold(field, lo, hi, w, c_scaled, ops.two_inv_m)
+    root = _root(gen, dev)
+    tw = fri.fold_twiddles(ops, (2 * half - 1).bit_length())
+    return lambda: K.fri_fold(field, lo, hi, root, tw, 1)
+
+
+def _round_case(fri, ops, lo, hi, gen, dev):
+    """A whole round's fold as ROOT's ladder makes it from the last root:
+    where ROOT's `fold_pair` takes a challenge, the challenge drawn from the
+    root on the device first (digest_to_challenge_mont), as its ladder did;
+    else `fold_pair` alone."""
+    import inspect
+
+    root = _root(gen, dev)
+    log_n = (2 * lo.shape[-2] - 1).bit_length()
+    if "challenge_limbs" in inspect.signature(fri.fold_pair).parameters:
+        from hodor_tpu_torch.merkle.blake2s import digest_to_challenge_mont
+
+        return lambda: fri.fold_pair(ops, lo, hi, digest_to_challenge_mont(ops, root), 1, log_n)
+    fri.fold_twiddles(ops, log_n)
+    return lambda: fri.fold_pair(ops, lo, hi, root, 1, log_n)
+
+
+def _root(gen, dev):
+    return torch.randint(-1 << 31, 1 << 31, (8,), generator=gen,
+                         dtype=torch.int64).to(torch.int32).to(dev)
+
+
 def cases(dev):
     """(kernel, case, fn): phase 3's elementwise cases at 2^20 elements, the
-    fold's at half 1 and 2^23 (F_STARK), and F_P63's at 2^24 elements and
-    half 2^23."""
+    fold's at half 1, 2^23 and 2^24 (F_STARK), F_P63's at 2^24 elements
+    and half 2^23, and a whole FRI round's fold at half 2^23 and 2^24."""
     from hodor_tpu_torch.field import F_BLS, F_P63, F_STARK, LimbOps
     from hodor_tpu_torch.field import kernels as K
+    from hodor_tpu_torch.fri import fri
 
     gen = torch.Generator().manual_seed(2024)
     n = 1 << 20
@@ -184,8 +228,6 @@ def cases(dev):
         s = _canonical(field, (), gen, dev)
         coeffs = _canonical(field, (2, 1, n // 2), gen, dev)
         pw = _canonical(field, (16, n // 2), gen, dev)
-        c_scaled = ops.mul(_canonical(field, (), gen, dev), ops.two_inv_m)
-        wv = _canonical(field, (n // 2,), gen, dev)
         tag = "" if field is F_STARK else f"{field.name} "
         out += [
             ("mont_mul", f"{tag}2^20", lambda f=field, x=a, y=b: K.mont_mul(f, x, y)),
@@ -198,30 +240,25 @@ def cases(dev):
             ("addsub", f"{tag}sub 2^20 x scalar (stride 0)",
              lambda f=field, x=a, y=s: K.addsub(f, x, y, "sub")),
             ("fri_fold", f"{tag}half=2^19",
-             lambda f=field, lo=a[:n // 2], hi=a[n // 2:], w=wv, c=c_scaled, i2=ops.two_inv_m:
-             K.fri_fold(f, lo, hi, w, c, i2)),
-            ("fri_fold", f"{tag}half=1",
-             lambda f=field, lo=a[:1], hi=a[1:2], w=wv[:1], c=c_scaled, i2=ops.two_inv_m:
-             K.fri_fold(f, lo, hi, w, c, i2)),
+             _fold_case(K, fri, field, ops, a[:n // 2], a[n // 2:], gen, dev)),
+            ("fri_fold", f"{tag}half=1", _fold_case(K, fri, field, ops, a[:1], a[1:2], gen, dev)),
         ]
-    values = _canonical(F_STARK, (1 << 24,), gen, dev)
     ops = LimbOps(F_STARK, dev)
-    w = _canonical(F_STARK, (1 << 23,), gen, dev)
-    c_scaled = ops.mul(_canonical(F_STARK, (), gen, dev), ops.two_inv_m)
-    out.append(("fri_fold", "half=2^23",
-                lambda: K.fri_fold(F_STARK, values[:1 << 23], values[1 << 23:], w, c_scaled,
-                                   ops.two_inv_m)))
+    for log_half in (23, 24):
+        values = _canonical(F_STARK, (2 << log_half,), gen, dev)
+        lo, hi = values[:1 << log_half], values[1 << log_half:]
+        out += [("fri_fold", f"half=2^{log_half}",
+                 _fold_case(K, fri, F_STARK, ops, lo, hi, gen, dev)),
+                ("fri round", f"half=2^{log_half}", _round_case(fri, ops, lo, hi, gen, dev))]
     # F_P63 at the sizes its 2^20-row prove at lde 16 gives these kernels:
     # 2^24-element LDE columns and a first fold of half 2^23
     ops63 = LimbOps(F_P63, dev)
     a, b = _canonical(F_P63, (1 << 24,), gen, dev), _canonical(F_P63, (1 << 24,), gen, dev)
-    w63 = _canonical(F_P63, (1 << 23,), gen, dev)
-    c63 = ops63.mul(_canonical(F_P63, (), gen, dev), ops63.two_inv_m)
     out += [
         ("mont_mul", "F_P63 2^24", lambda: K.mont_mul(F_P63, a, b)),
         ("addsub", "F_P63 add 2^24", lambda: K.addsub(F_P63, a, b, "add")),
         ("fri_fold", "F_P63 half=2^23",
-         lambda: K.fri_fold(F_P63, a[:1 << 23], a[1 << 23:], w63, c63, ops63.two_inv_m)),
+         _fold_case(K, fri, F_P63, ops63, a[:1 << 23], a[1 << 23:], gen, dev)),
     ]
     return out
 

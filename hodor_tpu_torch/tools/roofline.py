@@ -36,7 +36,10 @@ def ops_addsub(n16: int) -> int:
 
 
 def ops_fri_fold(n16: int) -> int:
-    return 3 * ops_mont_mul(n16) + 3 * ops_addsub(n16)
+    """Two products (by the twiddle's two table entries, one of them times
+    c), lo - hi, lo + hi, their sum, and the halving, a conditional add of
+    p and a shift."""
+    return 2 * ops_mont_mul(n16) + 4 * ops_addsub(n16)
 
 
 def ops_wide_reduce(n16: int) -> int:

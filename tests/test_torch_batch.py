@@ -23,6 +23,7 @@ import hodor_tpu_torch.air as tair
 from hodor_tpu_torch.errors import DivisionByZeroError
 from hodor_tpu_torch.field import F257, F_STARK, LimbOps, from_numpy_limbs, to_numpy_limbs
 from hodor_tpu_torch.field import kernels as K
+from hodor_tpu_torch.fri.fri import fold_twiddles
 from hodor_tpu_torch.merkle.tree import MerkleTree, fetch_roots
 from hodor_tpu_torch.models import VDF
 from hodor_tpu_torch.proof_io import serialize_proof
@@ -134,51 +135,63 @@ def _limbs(rng, shape, field):
     return limbs
 
 
+def _roots(rng, shape):
+    """Random (..., 8) int32 root digests."""
+    return torch.from_numpy(
+        rng.integers(-1 << 31, 1 << 31, size=shape + (8,), dtype=np.int64).astype(np.int32))
+
+
 @pytest.mark.parametrize("lanes,half", [(2, 512), (3, 7)])
 @pytest.mark.parametrize("field", [F_STARK, F257], ids=lambda f: f.name)
 def test_fri_fold_plain_with_lanes_equals_lane_by_lane(field, lanes, half):
     """The fold with a lane axis (the kernel's plain version on CPU
-    tensors) equals the fold of each lane alone, on the two halves of a
-    tensor and on row-strided views."""
+    tensors), one root a lane, equals the fold of each lane alone, on the
+    two halves of a tensor and on row-strided views."""
     rng = np.random.default_rng(lanes * half)
+    ops = LimbOps(field, "cpu")
     values = from_numpy_limbs(_limbs(rng, (lanes, 2 * half), field), "cpu")
-    w = from_numpy_limbs(_limbs(rng, (half,), field), "cpu")
-    c = from_numpy_limbs(_limbs(rng, (lanes,), field), "cpu")
-    inv2 = LimbOps(field, "cpu").two_inv_m
+    roots = _roots(rng, (lanes,))
+    tw = fold_twiddles(ops, 8)
     for lo, hi in ((slice(None, half), slice(half, None)), (slice(0, None, 2), slice(1, None, 2))):
-        got = K.fri_fold(field, values[:, lo], values[:, hi], w, c, inv2)
+        got = K.fri_fold(field, values[:, lo], values[:, hi], roots, tw, 2, 1)
         assert got.shape == (lanes, half, field.n16)
         for b in range(lanes):
-            assert torch.equal(got[b], K.fri_fold_plain(field, values[b, lo], values[b, hi], w,
-                                                        c[b], inv2))
+            assert torch.equal(got[b], K.fri_fold(field, values[b, lo], values[b, hi], roots[b],
+                                                  tw, 2, 1))
 
 
 def test_fri_fold_with_lanes_equals_pallas_interpret_lane_by_lane():
     """Against the JAX package's Pallas fold in interpret mode, lane by
-    lane (its tiles take half a multiple of 32 x 128 rows)."""
+    lane (its tiles take half a multiple of 32 x 128 rows), given the
+    twiddles and the challenge each root draws."""
     rng = np.random.default_rng(48)
-    lanes, half = 2, 4096
+    lanes, half, log_domain = 2, 4096, 14
+    ops = LimbOps(F_STARK, "cpu")
     values = _limbs(rng, (lanes, 2 * half), F_STARK)
-    w = _limbs(rng, (half,), F_STARK)
-    c = _limbs(rng, (lanes,), F_STARK)
-    inv2 = to_numpy_limbs(LimbOps(F_STARK, "cpu").two_inv_m)
+    roots = _roots(rng, (lanes,))
+    tw = fold_twiddles(ops, log_domain)
     got = K.fri_fold(F_STARK, from_numpy_limbs(values[:, :half], "cpu"),
-                     from_numpy_limbs(values[:, half:], "cpu"), from_numpy_limbs(w, "cpu"),
-                     from_numpy_limbs(c, "cpu"), from_numpy_limbs(inv2, "cpu"))
+                     from_numpy_limbs(values[:, half:], "cpu"), roots, tw, 2)
+    w = to_numpy_limbs(K.fold_twiddles_plain(F_STARK, tw, half, 2))
+    c_scaled = to_numpy_limbs(ops.mul(K.fold_challenge_plain(F_STARK, roots), ops.two_inv_m))
+    inv2 = to_numpy_limbs(ops.two_inv_m)
     for b in range(lanes):
         want = pallas_fri_fold(JF_STARK, jnp.asarray(values[b, :half]),
-                               jnp.asarray(values[b, half:]), jnp.asarray(w), jnp.asarray(c[b]),
-                               jnp.asarray(inv2), interpret=True)
+                               jnp.asarray(values[b, half:]), jnp.asarray(w),
+                               jnp.asarray(c_scaled[b]), jnp.asarray(inv2), interpret=True)
         assert np.array_equal(to_numpy_limbs(got[b]), np.asarray(want))
 
 
 def test_fri_fold_rejects_mismatched_lanes():
     ops = LimbOps(F_STARK, "cpu")
     v = ops.encode([list(range(8)), list(range(8, 16))])  # (2, 8, n16)
-    with pytest.raises(ValueError):  # one challenge for two lanes
-        K.fri_fold(F_STARK, v[:, :4], v[:, 4:], v[0, :4], ops.two_inv_m, ops.two_inv_m)
-    with pytest.raises(ValueError):  # per-lane twiddles
-        K.fri_fold(F_STARK, v[:, :4], v[:, 4:], v[:, :4], v[:, 0], ops.two_inv_m)
+    roots = torch.zeros(2, 8, dtype=torch.int32)
+    tw = fold_twiddles(ops, 4)
+    with pytest.raises(ValueError):  # one root for two lanes
+        K.fri_fold(F_STARK, v[:, :4], v[:, 4:], roots[0], tw, 1)
+    with pytest.raises(ValueError):  # three roots for two lanes
+        K.fri_fold(F_STARK, v[:, :4], v[:, 4:], torch.zeros(3, 8, dtype=torch.int32),
+                   tw, 1)
 
 
 @pytest.mark.parametrize("field", [F_STARK, F257], ids=lambda f: f.name)

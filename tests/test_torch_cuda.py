@@ -229,21 +229,44 @@ def test_mont_pow_kernel(dev, name, count):
     _same(inv, ops.one_m)
 
 
+def _roots(shape, seed):
+    """Random (..., 8) int32 root digests, the last all ones (every bit the
+    challenge reads: the shave mask's)."""
+    g = torch.Generator().manual_seed(seed)
+    roots = torch.randint(-1 << 31, 1 << 31, shape + (8,), generator=g, dtype=torch.int64)
+    roots = roots.to(torch.int32)
+    roots.view(-1, 8)[-1] = -1
+    return roots
+
+
+def _tables(field, log_n, make, seed):
+    """A PowerTwiddle of N = 2^log_n points whose entries come from
+    make(shape, seed) (no powers of a root: the kernel only multiplies
+    them), split as ntt/matmul.py power_twiddles splits."""
+    shift = (1 << log_n).bit_length() // 2
+    return K.PowerTwiddle(K.pack_words(make((1 << shift,), seed)),
+                          K.pack_words(make((max(1, (1 << log_n) >> shift),), seed + 1)), shift)
+
+
+def _on(tw, dev):
+    return K.PowerTwiddle(tw.lo.to(dev), tw.hi.to(dev), tw.shift)
+
+
 @pytest.mark.parametrize("half", [1, 3, 1001])
 @pytest.mark.parametrize("name", sorted(FIELDS))
 def test_fri_fold_kernel(dev, name, half):
     field = FIELDS[name]
     values = _canonical(field, (2 * half,), 8)
-    w = _canonical(field, (2 * half,), 9)
-    c, inv2 = _canonical(field, (), 10), _canonical(field, (), 11)
-    vd, wd = values.to(dev), w.to(dev)
+    tw = _tables(field, 12, lambda shape, seed: _canonical(field, shape, seed), 9)
+    roots = _roots((), 10)
+    vd, twd = values.to(dev), _on(tw, dev)
     # the two halves of one tensor, then interleaved (row-strided) views
-    for lo, hi, tw in ((slice(None, half), slice(half, None), slice(None, half)),
-                       (slice(0, None, 2), slice(1, None, 2), slice(1, None, 2))):
+    for lo, hi, stride, first in ((slice(None, half), slice(half, None), 1, 0),
+                                  (slice(0, None, 2), slice(1, None, 2), 4, 3)):
         before = K.launch_counts["fri_fold"]
-        got = K.fri_fold(field, vd[lo], vd[hi], wd[tw], c.to(dev), inv2.to(dev))
+        got = K.fri_fold(field, vd[lo], vd[hi], roots.to(dev), twd, stride, first)
         assert K.launch_counts["fri_fold"] == before + 1
-        _same(got, K.fri_fold_plain(field, values[lo], values[hi], w[tw], c, inv2))
+        _same(got, K.fri_fold_round_plain(field, values[lo], values[hi], roots, tw, stride, first))
         _same(vd, values)  # the operands are read, never written
 
 
@@ -343,25 +366,62 @@ def _on_card(t):
 @pytest.mark.parametrize("name", sorted(FIELDS))
 def test_fri_fold_kernel_ragged(dev, name, lanes, half, inputs):
     """Halves that are no multiple of a block, with and without lanes,
-    every input p - 1 among them, the two halves and the interleaved
-    rows."""
+    every input p - 1 among them (values, tables, and a root of all
+    ones), the two halves and the interleaved rows, strides below and
+    above the tables' split and an offset that wraps the domain."""
     field = FIELDS[name]
     shape = (2 * half,) if lanes is None else (lanes, 2 * half)
-    c_shape = () if lanes is None else (lanes,)
+    r_shape = () if lanes is None else (lanes,)
     if inputs == "random":
-        values, w = _canonical(field, shape, 40), _canonical(field, (2 * half,), 41)
-        c, inv2 = _canonical(field, c_shape, 42), _canonical(field, (), 43)
+        make = lambda shape, seed: _canonical(field, shape, seed)  # noqa: E731
+        roots = _roots(r_shape, 42)
     else:
-        values, w = _worst(field, shape), _worst(field, (2 * half,))
-        c, inv2 = _worst(field, c_shape), _worst(field, ())
-    vd, wd, cd, id2 = values.to(dev), w.to(dev), c.to(dev), inv2.to(dev)
-    for lo, hi, tw in ((slice(None, half), slice(half, None), slice(None, half)),
-                       (slice(0, None, 2), slice(1, None, 2), slice(1, None, 2))):
+        make = lambda shape, seed: _worst(field, shape)  # noqa: E731
+        roots = torch.full(r_shape + (8,), -1, dtype=torch.int32)
+    values, tw = make(shape, 40), _tables(field, 13, make, 41)
+    vd, rd, twd = values.to(dev), roots.to(dev), _on(tw, dev)
+    for lo, hi, stride, first in ((slice(None, half), slice(half, None), 1, 0),
+                                  (slice(0, None, 2), slice(1, None, 2), 2, 4095),
+                                  (slice(None, half), slice(half, None), 1 << 9, 5)):
         before = K.launch_counts["fri_fold"]
-        got = K.fri_fold(field, vd[..., lo, :], vd[..., hi, :], wd[tw], cd, id2)
+        got = K.fri_fold(field, vd[..., lo, :], vd[..., hi, :], rd, twd, stride, first)
         assert K.launch_counts["fri_fold"] == before + 1
-        _same(got, K.fri_fold_plain(field, values[..., lo, :], values[..., hi, :], w[tw], c,
-                                    inv2))
+        _same(got, K.fri_fold_round_plain(field, values[..., lo, :], values[..., hi, :], roots,
+                                          tw, stride, first))
+
+
+FOLD_SIZES = [(4, 0, None, 0), (4, 6, 2, 3), (8, 2, 3, (1 << 9) - 5), (12, 1, None, 1),
+              (12, 14, None, 0), (16, 3, 2, 5), (20, 0, None, 0), (20, 4, 2, (1 << 19) + 7)]
+
+
+@pytest.mark.parametrize("log_half,rnd,lanes,first", FOLD_SIZES)
+@pytest.mark.parametrize("name", ["F_STARK", "F_BLS", "F_P63"])
+def test_fri_fold_kernel_at_ladder_sizes(dev, name, log_half, rnd, lanes, first):
+    """Halves of 2^4 to 2^20 rows in round `rnd` of a domain of
+    2^(log_half + 1 + rnd) points, the tables the ladder reads
+    (fold_twiddles, built on the card), rows from `first` on as a mesh
+    block's (past the domain's end where first is large), with and
+    without lanes: the kernel bit-equal to its plain version on the same
+    card and to the old composition where the rows are few."""
+    from hodor_tpu_torch.fri.fri import fold_pair_composed, fold_twiddles
+
+    field = FIELDS[name]
+    ops = LimbOps(field, dev)
+    half, log_n = 1 << log_half, log_half + 1 + rnd
+    shape = (2 * half,) if lanes is None else (lanes, 2 * half)
+    values = _canonical(field, shape, 50 + log_half).to(dev)
+    roots = _roots(() if lanes is None else (lanes,), 51).to(dev)
+    tw = fold_twiddles(ops, log_n)
+    lo, hi = values[..., :half, :], values[..., half:, :]
+    got = K.fri_fold(field, lo, hi, roots, tw, 1 << rnd, first)
+    _same(got, K.fri_fold_round_plain(field, lo, hi, roots, tw, 1 << rnd, first))
+    if log_half <= 12:
+        cpu = LimbOps(field, "cpu")
+        for b in range(1 if lanes is None else lanes):
+            pick = (lambda t: t) if lanes is None else (lambda t: t[b])
+            want = fold_pair_composed(cpu, pick(lo).cpu(), pick(hi).cpu(), pick(roots).cpu(),
+                                      1 << rnd, log_n, first)
+            _same(pick(got), want)
 
 
 LEVEL_CASES = [(2, 3, 5, "table"), (4, 3, 5, "table"), (4, 1, 7, None), (8, 1, 37, "scalar"),
@@ -510,21 +570,21 @@ def test_goldens_on_the_card(dev, name):
 @pytest.mark.parametrize("lanes,half", [(1, 1001), (3, 1001), (3, 3), (2, 128)])
 @pytest.mark.parametrize("name", sorted(FIELDS))
 def test_fri_fold_kernel_with_lanes(dev, name, lanes, half):
-    """(B, half, n16) halves with one challenge per lane, in one launch,
+    """(B, half, n16) halves with one root per lane, in one launch,
     against the plain version and against the kernel lane by lane."""
     field = FIELDS[name]
     values = _canonical(field, (lanes, 2 * half), 15)
-    w = _canonical(field, (half,), 16)
-    c, inv2 = _canonical(field, (lanes,), 17), _canonical(field, (), 18)
-    vd, wd, cd, id2 = values.to(dev), w.to(dev), c.to(dev), inv2.to(dev)
+    tw = _tables(field, 11, lambda shape, seed: _canonical(field, shape, seed), 16)
+    roots = _roots((lanes,), 17)
+    vd, twd, rd = values.to(dev), _on(tw, dev), roots.to(dev)
     for lo, hi in ((slice(None, half), slice(half, None)),
                    (slice(0, None, 2), slice(1, None, 2))):
         before = K.launch_counts["fri_fold"]
-        got = K.fri_fold(field, vd[:, lo], vd[:, hi], wd, cd, id2)
+        got = K.fri_fold(field, vd[:, lo], vd[:, hi], rd, twd, 2, 1)
         assert K.launch_counts["fri_fold"] == before + 1
-        _same(got, K.fri_fold_plain(field, values[:, lo], values[:, hi], w, c, inv2))
+        _same(got, K.fri_fold_round_plain(field, values[:, lo], values[:, hi], roots, tw, 2, 1))
         for b in range(lanes):
-            _same(got[b], K.fri_fold(field, vd[b, lo], vd[b, hi], wd, cd[b], id2))
+            _same(got[b], K.fri_fold(field, vd[b, lo], vd[b, hi], rd[b], twd, 2, 1))
     _same(vd, values)
 
 
@@ -776,3 +836,57 @@ def test_poseidon_proof_on_the_card_equals_the_cpu(dev):
     finally:
         torch.set_num_threads(threads)
     assert blobs[0] == blobs[1]
+
+
+def test_fri_ladder_on_the_card_asks_nothing_of_the_host(dev, monkeypatch):
+    """A quadratic VDF of 2^12 rows: the card's proof bytes equal the
+    CPU's, and inside its ladder every fold is one fri_fold launch and no
+    mont_mul; a warm ladder copies nothing from the host to the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hodor_tpu_torch.fri import fri as tfri
+    from hodor_tpu_torch.models import VDF
+    from hodor_tpu_torch.proof_io import serialize_proof
+    from hodor_tpu_torch.prover import Prover
+    from hodor_tpu_torch.verifier import Verifier
+
+    fold_pair, folds = tfri.fold_pair, []
+
+    def counted(*args, **kwargs):
+        before = dict(K.launch_counts)
+        out = fold_pair(*args, **kwargs)
+        folds.append({k: K.launch_counts[k] - before[k] for k in before})
+        return out
+
+    witness, props = VDF(F_STARK, 1, 2, (1 << 12) - 1, witness="python").into_arp()
+    blobs = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)  # the CPU prove of 2^12 rows
+    try:
+        for device in (dev, "cpu"):
+            prover = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1,
+                            device=device)
+            if device == dev:
+                monkeypatch.setattr(tfri, "fold_pair", counted)
+            proof = prover.prove(witness)
+            monkeypatch.setattr(tfri, "fold_pair", fold_pair)
+            blobs.append(serialize_proof(proof, F_STARK))
+            assert Verifier(props, lde_factor=16).verify(proof)
+    finally:
+        torch.set_num_threads(threads)
+    assert blobs[0] == blobs[1]
+    assert len(folds) == 12 + 13  # h1 from 2^16 values, h2 from 2^17, to 16 points
+    for launches in folds:
+        assert launches["fri_fold"] == 1 and sum(launches.values()) == 1
+
+    ops = LimbOps(F_STARK, dev)
+    lde = _canonical(F_STARK, (1 << 16,), 60).to(dev)
+    tfri.fri_chain(ops, lde, 12, 16)  # builds the tables
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tfri.fri_chain(ops, lde, 12, 16)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert sum("fri_fold_kernel" in n for n in names) == 12
+    assert not [n for n in names if "HtoD" in n]

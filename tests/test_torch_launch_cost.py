@@ -10,6 +10,7 @@ import torch
 
 from hodor_tpu_torch.field import F_P63, F_STARK, LimbOps
 from hodor_tpu_torch.field import kernels as K
+from hodor_tpu_torch.fri.fri import fold_twiddles
 from hodor_tpu_torch.tools.launch_cost import input_copies
 
 torch.set_num_threads(1)
@@ -100,8 +101,8 @@ def test_copies_of_a_wrapper_call_compute_the_same(kernel):
     calls = {
         "mont_mul": lambda: K.mont_mul(field, a, b),
         "addsub": lambda: K.addsub(field, a[1:], b[:-1], "sub"),
-        "fri_fold": lambda: K.fri_fold(field, a[:32], a[32:], b[:32], ops.two_inv_m,
-                                       ops.two_inv_m),
+        "fri_fold": lambda: K.fri_fold(field, a[:32], a[32:], b.view(-1)[:8],
+                                       fold_twiddles(ops, 6), 2, 3),
     }
     fns = input_copies(calls[kernel], sweep_bytes=4 * a.untyped_storage().nbytes())
     assert len(fns) >= 2

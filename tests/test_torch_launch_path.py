@@ -14,6 +14,7 @@ import torch
 
 from hodor_tpu_torch.field import F257, F_P63, F_STARK, LimbOps
 from hodor_tpu_torch.field import kernels as K
+from hodor_tpu_torch.fri.fri import fold_twiddles
 
 torch.set_num_threads(1)
 
@@ -196,29 +197,26 @@ def test_launch_arrays_are_ctypes():
 @pytest.mark.parametrize("field", [F_STARK, F_P63, F257], ids=lambda f: f.name)
 def test_fold_strides(field, lanes):
     """The fold's cached integer arguments: out's lane stride, the row and
-    lane strides of lo and hi (the two halves, or interleaved rows), w's
-    row stride, the challenge's lane stride, half and the lane count."""
-    ops = LimbOps(field, "cpu")
+    lane strides of lo and hi (the two halves, or interleaved rows), the
+    roots' lane stride, half and the lane count."""
     n = field.n16
     half = 7
     values = torch.zeros((2 * half, n) if lanes is None else (lanes, 2 * half, n),
                          dtype=torch.int32)
-    w = torch.zeros(2 * half, n, dtype=torch.int32)
-    c = ops.two_inv_m if lanes is None else ops.two_inv_m.expand(lanes, n).contiguous()
+    roots = torch.zeros((8,) if lanes is None else (lanes, 8), dtype=torch.int32)
     lane_stride = 0 if lanes is None else 2 * half * n
-    for lo, hi, tw, row in ((values[..., :half, :], values[..., half:, :], w[:half], n),
-                            (values[..., 0::2, :], values[..., 1::2, :], w[1::2], 2 * n)):
-        assert K._fold_strides(field, lo, hi, tw, c) == (
-            half * n, row, lane_stride, row, lane_stride, row, 0 if lanes is None else n, half,
+    for lo, hi, row in ((values[..., :half, :], values[..., half:, :], n),
+                        (values[..., 0::2, :], values[..., 1::2, :], 2 * n)):
+        assert K._fold_strides(field, lo, hi, roots) == (
+            half * n, row, lane_stride, row, lane_stride, 0 if lanes is None else 8, half,
             1 if lanes is None else lanes)
 
 
 def test_fold_refuses_unaligned_rows():
-    ops = LimbOps(F_STARK, "cpu")
     buf = torch.zeros(64 * 4 + 2, dtype=torch.int32)
     rows = torch.as_strided(buf, (4, 16), (18, 1))
     with pytest.raises(ValueError):
-        K._fold_strides(F_STARK, rows, rows, rows, ops.two_inv_m)
+        K._fold_strides(F_STARK, rows, rows, torch.zeros(8, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("first", [True, False])
@@ -227,15 +225,18 @@ def test_wrappers_raise_the_same_errors_after_a_cached_layout(first):
     once its layout (or a good operand's of the same shape) is cached."""
     ops = LimbOps(F_STARK, "cpu")
     v = ops.encode(list(range(8)))
+    root, tw = torch.zeros(8, dtype=torch.int32), fold_twiddles(ops, 4)
     if not first:
-        K.fri_fold(F_STARK, v[:4], v[4:], v[:4], ops.two_inv_m, ops.two_inv_m)
+        K.fri_fold(F_STARK, v[:4], v[4:], root, tw, 1)
         K.addsub(F_STARK, v, v, "add")
     with pytest.raises(ValueError):
-        K.fri_fold(F_STARK, v[:4], v[4:], v[:3], ops.two_inv_m, ops.two_inv_m)
+        K.fri_fold(F_STARK, v[:4], v[4:7], root, tw, 1)
     with pytest.raises(ValueError):
-        K.fri_fold(F_STARK, v[:4], v[4:], v[:4], v[:1], ops.two_inv_m)
+        K.fri_fold(F_STARK, v[:4], v[4:], root[:1], tw, 1)
+    with pytest.raises(ValueError):
+        K.fri_fold(F_STARK, v[:4], v[4:], root, tw, 3)
     with pytest.raises(TypeError):
-        K.fri_fold(F_STARK, v[:4].to(torch.int64), v[4:], v[:4], ops.two_inv_m, ops.two_inv_m)
+        K.fri_fold(F_STARK, v[:4].to(torch.int64), v[4:], root, tw, 1)
     with pytest.raises(TypeError):
         K.addsub(F_STARK, v.to(torch.int64), v, "add")
     with pytest.raises(ValueError):

@@ -308,7 +308,11 @@ def test_doc_s7_fri_fold_by_hand_f257():
     ops = LimbOps(F257, "cpu")
     values = ops.encode([3, 7])
     challenge = ops.encode([5])[0]
-    out = fold_round(ops, values, challenge, 1, 1)  # w^0 = 1
+    # a root whose first 8 bytes read big-endian and shaved to F257's 8
+    # bits give 5: byte 7, the top byte of word 1
+    root = torch.tensor([0, 5 << 24, 0, 0, 0, 0, 0, 0], dtype=torch.int32)
+    assert F257.from_be_with_shave(root.numpy().astype("<i4").tobytes()) == 5
+    out = fold_round(ops, values, root, 1, 1)  # w^0 = 1
     assert int(ops.decode(out)[0]) == 252
     c_scaled = ops.mul(challenge, ops.two_inv_m)
     plain = K.fri_fold_plain(F257, values[:1], values[1:], ops.encode([1]), c_scaled,

@@ -28,7 +28,7 @@ STAGES = ("witness+f_ldes+f_oracles", "g_composition+g_oracle", "deep", "fri_h1+
 SPANS = ("prover.init", "arp.route", "ali.tables", "encode_witness", "witness_polys", "lde",
          "merkle.commit", "transcript", "ali.g", "ali.terms", "ali.compose", "ali.boundary",
          "ali.interpolant", "ali.deep_quotients", "domain_points",
-         "fri.challenge", "fri.fold", "fri.fetch", "fri.prototype", "query.plan",
+         "fri.fold", "fri.fetch", "fri.prototype", "query.plan",
          "query.gather", "query.assemble", "ops.tables")
 
 
@@ -117,6 +117,14 @@ def test_prove_keeps_the_stage_names(proved):
 def test_first_prove_records_each_span(proved, name):
     _, (first, _) = proved
     assert name in {s.name for s in first.spans}
+
+
+def test_ladder_records_no_challenge_span(proved):
+    """The fold draws each round's challenge from the last root itself: no
+    prove records a `fri.challenge` span, and the folds are spanned."""
+    for rec in proved[1]:
+        names = {s.name for s in rec.spans}
+        assert "fri.challenge" not in names and "fri.fold" in names
 
 
 def test_no_child_ends_in_a_stage_name(proved):
