@@ -13,14 +13,14 @@ Phases, each reported on its own line:
      dft_reduce alone, and mont_pow, the static power in mont_mul.cu)
      against its plain PyTorch version on the card, on seeded random
      canonical inputs at the shapes the prove gives it; ntt_level in its
-     three level bodies (tensor cores, butterflies in registers, limbs on
-     the integer pipe: the one the wrapper picks against the plain version,
-     the others that take the shape beside it), its shared body (radix-2
-     stages in shared memory) at the passes of 2^20- to 2^23-point
-     transforms against its plain version, and the whole transforms
-     (ntt, intt) of 2^20 to 2^23 points, two shared passes each, against
-     the radix plan's mma levels (`plain_ms` there is the radix plan's
-     time), and dft_reduce in both of
+     two level bodies (butterflies in registers, limbs on the integer
+     pipe: the one the wrapper picks against the plain version, the limb
+     body beside the butterfly body where both take the shape), its
+     shared body (radix-2 stages in shared memory) at the passes of
+     2^20- to 2^23-point transforms against its plain version, and the
+     whole transforms (ntt, intt) of 2^20 to 2^23 points, two shared
+     passes each, against the radix plan's limb levels (`plain_ms` there
+     is the radix plan's time), and dft_reduce in both of
      its bodies on the same inputs, timed in turn, dft_reduce also
      on ragged shapes, a 64-bit field and a random W that is no fold of a
      DFT matrix; s8dot at a bare launch's shape and at the fused level's
@@ -146,7 +146,7 @@ every other phase lets its prover go when it returns. Every path of
 phases 5-12, 14 and 15 zeroes the launch counts just before it runs and reads them
 just after, names the kernels it must have launched and prints the
 launches of each ntt_level body; the 2^20-row F_STARK paths must have run
-the tensor-core body, phases 10 and 11 the butterfly body alone.
+the shared body, phases 10 and 11 the butterfly body alone.
 
 The line before the last holds the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -174,9 +174,8 @@ LOG_ROWS_LARGE = 22
 
 # name -> (source, the TPU kernel it replaces). mont_mul.cu has two
 # entries, hodor_mont_mul and hodor_mont_pow (x^e in one launch, counted
-# with mont_mul); ntt_level.cu has four bodies, "mma" (the contraction of
-# csrc/byte_plane_mma.cuh on the int8 tensor cores), "butterfly", "limb"
-# and "shared" (the passes of the 16-limb fields' transforms);
+# with mont_mul); ntt_level.cu has three bodies, "butterfly", "limb" and
+# "shared" (the passes of the 16-limb fields' transforms);
 # dft_reduce.cu has two, "mma" and "dp4a", and the entry hodor_s8dot.
 KERNEL_INFO = {
     "mont_mul": ("hodor_tpu_torch/csrc/mont_mul.cu", "hodor_tpu/field/pallas_kernels.py:283"),
@@ -196,8 +195,7 @@ def level_bodies(size: int):
     """The bodies of ntt_level that take radix S by name at n16 = 16."""
     from hodor_tpu_torch.field import kernels as K
 
-    return [b for b, sizes in (("mma", K.MMA_RADICES), ("butterfly", K.BUTTERFLY_RADICES),
-                               ("limb", range(1, 129)))
+    return [b for b, sizes in (("butterfly", K.BUTTERFLY_RADICES), ("limb", range(1, 129)))
             if size in sizes]
 
 
@@ -386,14 +384,13 @@ def phase_kernels(dev):
         version, and the other bodies that take the shape beside it."""
         w = M.dft_matrix(ops, size, inverse)
         body = K.ntt_level_body(field, size)
-        planes = M.dft_matrix_planes(ops, size, inverse) if body == "mma" else None
         others = {b: (lambda b=b: K.ntt_level(field, xv, w, t, body=b))
                   for b in level_bodies(size) if b != body}
         before = dict(K.ntt_level_body_counts)
         compare("ntt_level", f"{case} [{body}]",
-                lambda: K.ntt_level(field, xv, w, t, w_planes=planes),
+                lambda: K.ntt_level(field, xv, w, t),
                 lambda: K.ntt_level_plain(field, xv, w, t),
-                nbytes(xv, planes if planes is not None else w, t),
+                nbytes(xv, w, t),
                 xv.numel() // field.n16 * ops_ntt_level(size), "int8", reps=reps, plain_reps=1,
                 other_bodies=others)
         if K.ntt_level_body_counts[body] == before[body]:
@@ -415,7 +412,7 @@ def phase_kernels(dev):
     for size in (64, 32, 16, 8):
         level_case(f"S={size} C=1 B=2^20/{size}", x.reshape(n // size, size, 1, field.n16),
                    size, False, None, reps=20)
-    # ragged edges of the tensor-core body's tile: C no multiple of 16 with
+    # ragged edges of the limb body's 8 x 32 tile: C no multiple of 32 with
     # a batch boundary inside a tile, and a single column
     level_case("S=128 C=20 B=3 twiddle table", x[:3, :, :20].contiguous(), 128, False,
                tw[:, :20].contiguous(), reps=20)
@@ -626,7 +623,7 @@ def shared_cases(field, ops, gen, dev, compare):
     columns with the four-step power twiddle; the rows with 1/N, written
     in natural order), the 2^11-point pass of 2^22 and the split 2^12-point
     pass of 2^23, and whole transforms (ntt, intt) of 2^20 to 2^23 points
-    beside the radix plan's mma levels; against the body's plain version
+    beside the radix plan's limb levels; against the body's plain version
     on the card. The bound: the bytes of one read and one write, or the
     int8 operations of log2 S radix-2 levels (stark_bench/roofline.py's
     yardstick)."""
@@ -1923,8 +1920,7 @@ def main() -> int:
         if name == "ntt_level":
             kernels[-1]["launches_by_body"] = main_bodies
             kernels[-1]["launches_by_body_off_ground"] = off_ground_bodies
-            kernels[-1]["contraction"] = "hodor_tpu_torch/csrc/byte_plane_mma.cuh"
-            kernels[-1]["entries"] = ["hodor_ntt_level_mma", "hodor_ntt_level_butterfly",
+            kernels[-1]["entries"] = ["hodor_ntt_level_pass", "hodor_ntt_level_butterfly",
                                       "hodor_ntt_level"]
         if name == "dft_reduce":
             kernels[-1]["launches_by_body"] = fused_bodies

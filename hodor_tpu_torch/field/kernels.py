@@ -21,17 +21,15 @@ the wrapper picks one from the field and the radix (`dft_reduce_body`),
 and `dft_reduce_body_counts` counts each. `mont_pow` is a second entry of
 mont_mul.cu: x^e for a static exponent in one launch (the one-program
 exponent loop of hodor_tpu/field/limbs.py inv_fermat); its launches count
-as mont_mul's. `ntt_level` has four bodies in ntt_level.cu: the
-byte-plane contraction on the int8 tensor cores ("mma",
-csrc/byte_plane_mma.cuh) for S = 32-128 at 16 limbs, radix-2 butterflies
-on canonical values in registers ("butterfly") for S = 2, 4, 8, and the
-limb arithmetic on the integer pipe ("limb") for the rest, which
-`ntt_level` picks from the field and the radix (`ntt_level_body`); and
-radix-2 stages in shared memory ("shared", S = 2 to 2^12 at 16 limbs,
-entry `ntt_level_shared`), which reads roots of unity instead of a DFT
-matrix and writes at any strides: the passes of ntt/matmul.py's shared
-plan. `ntt_level_body_counts` counts each beside their sum in
-`launch_counts`.
+as mont_mul's. `ntt_level` has three bodies in ntt_level.cu: radix-2
+butterflies on canonical values in registers ("butterfly") for S = 2, 4,
+8, and the limb arithmetic on the integer pipe ("limb") for the rest,
+which `ntt_level` picks from the radix (`ntt_level_body`); and radix-2
+stages in shared memory ("shared", S = 2 to 2^12 at 16 limbs, entry
+`ntt_level_shared`), which reads roots of unity instead of a DFT matrix
+and writes at any strides: the passes of ntt/matmul.py's shared plan,
+which carry every 16-limb transform of 2^8 to 2^24 points.
+`ntt_level_body_counts` counts each beside their sum in `launch_counts`.
 `mont_mul` and `addsub` have three bodies each, picked from the collapsed
 layout by one rule ("flat", "grid", "general"; `mont_mul_body`,
 `addsub_body`), counted in `mont_mul_body_counts` and
@@ -81,7 +79,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("mont_mul", "addsub", "blake2s", "ntt_level", "fri_fold", "wide_reduce",
            "dft_reduce")
 launch_counts = {name: 0 for name in KERNELS}
-NTT_LEVEL_BODIES = ("mma", "butterfly", "limb", "shared")
+NTT_LEVEL_BODIES = ("butterfly", "limb", "shared")
 ntt_level_body_counts = {body: 0 for body in NTT_LEVEL_BODIES}
 DFT_REDUCE_BODIES = ("mma", "dp4a")
 dft_reduce_body_counts = {body: 0 for body in DFT_REDUCE_BODIES}
@@ -177,7 +175,6 @@ def _bind(lib):
     lib.hodor_addsub.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.hodor_blake2s.argtypes = [vp, vp, i64, i32, vp, u32, vp]
     lib.hodor_ntt_level.argtypes = [i32, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32, vp, i32, vp]
-    lib.hodor_ntt_level_mma.argtypes = lib.hodor_ntt_level.argtypes
     lib.hodor_ntt_level_butterfly.argtypes = [i32, vp, vp, vp, i64, i32, i64, i32, vp, vp, u32,
                                               vp]
     lib.hodor_ntt_level_pass.argtypes = [i32, vp, vp, vp, i64, i32, i64, vp, i32, vp, vp, i32, vp,
@@ -190,7 +187,7 @@ def _bind(lib):
     lib.hodor_dft_reduce_mma.argtypes = lib.hodor_dft_reduce.argtypes
     lib.hodor_s8dot.argtypes = [vp, vp, vp, i32, i32, i32, vp]
     for fn in (lib.hodor_mont_mul, lib.hodor_mont_pow, lib.hodor_addsub, lib.hodor_blake2s,
-               lib.hodor_ntt_level, lib.hodor_ntt_level_mma, lib.hodor_ntt_level_butterfly,
+               lib.hodor_ntt_level, lib.hodor_ntt_level_butterfly,
                lib.hodor_ntt_level_pass, lib.hodor_fri_fold,
                lib.hodor_wide_reduce, lib.hodor_dft_reduce, lib.hodor_dft_reduce_mma,
                lib.hodor_s8dot):
@@ -801,52 +798,6 @@ def _dif_plain(field: Field, x, roots):
     return v[:, order]
 
 
-def byte_planes(limbs):
-    """(..., n16) 16-bit limbs -> (..., 2 n16) uint8: the element's bytes,
-    little-endian (plane 2 i the low byte of limb i, plane 2 i + 1 the high)."""
-    return torch.stack([limbs & 0xFF, limbs >> 8], dim=-1).reshape(
-        limbs.shape[:-1] + (2 * limbs.shape[-1],)).to(torch.uint8)
-
-
-def dft_byte_planes(w):
-    """The (S, S, n16) limb DFT matrix as the (P, S, S) uint8 byte-plane
-    matrix the tensor-core body of ntt_level reads: plane q, row k, depth j
-    holds byte q of W[k, j]; P = 2 n16."""
-    return byte_planes(w).permute(2, 0, 1).contiguous()
-
-
-def ntt_level_planes_plain(field: Field, x, w_planes, tw=None):
-    """The arithmetic of ntt_level's tensor-core body in torch ops: x
-    (B, S, C, n16) split into P = 2 n16 byte planes, base-256 column c of
-    the exact sums as the byte dots sum_{qi + qj = c} Wb[qi] . xb[qj]
-    (float64 products of bytes, exact: a column stays below 2^28), the
-    2 P - 1 columns walked in order with a running carry that gives one
-    byte of t a column, then the Montgomery reduction, the chain and the
-    twiddle as in ntt_level_plain."""
-    n = field.n16
-    planes = 2 * n
-    size = x.shape[1]
-    xf = byte_planes(x).permute(3, 0, 1, 2).to(torch.float64)  # (P, B, S, C)
-    wf = w_planes.to(torch.float64)  # (P, S, S)
-    run = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
-    t_bytes = []
-    for c in range(2 * planes - 1):
-        col = torch.zeros(x.shape[:-1], dtype=torch.float64, device=x.device)
-        for qi in range(max(0, c - planes + 1), min(c, planes - 1) + 1):
-            col += torch.matmul(wf[qi], xf[c - qi])
-        run = run + col.to(torch.int64)
-        t_bytes.append(run & 0xFF)
-        run = run >> 8
-    t_bytes.append(run)  # the top byte: t < S p^2 < 256^(2 P)
-    t8 = torch.stack(t_bytes, dim=-1)  # (B, S, C, 2 P)
-    t16 = t8[..., 0::2] | (t8[..., 1::2] << 8)
-    t16 = torch.cat([t16, torch.zeros_like(t16[..., :1])], dim=-1)
-    u = _reduce_wide_plain(field, t16, size)
-    if tw is not None:
-        u = mont_mul_plain(field, u, tw)
-    return u
-
-
 def _check_level_tw(field: Field, device, size: int, cols: int, tw) -> None:
     """A level's twiddle: None, an (n16,) scalar or an (S, C, n16) table,
     on the level's device, contiguous where a kernel reads it."""
@@ -879,29 +830,24 @@ def _level_args(field: Field, radix: int, tw):
             _u32_array(chain_words) if chain_words else None, len(chain))
 
 
-MMA_RADICES = (32, 64, 128)
 BUTTERFLY_RADICES = (2, 4, 8)
 
 
 def ntt_level_body(field: Field, size: int) -> str:
-    """Which body of the ntt_level kernel a level takes, from the field and
-    the radix alone: "mma" (byte planes on the int8 tensor cores) for a
-    16-limb field at S = 32, 64 or 128, whose depth fills the products'
-    32 bytes; "butterfly" (radix-2 stages in registers) at S = 2, 4, 8,
+    """Which body of the ntt_level kernel a level takes, from the radix
+    alone: "butterfly" (radix-2 stages in registers) at S = 2, 4, 8,
     which is every level of a field of max_radix 4 and the small terminal
     radices; "limb" (the integer pipe) for every other S <= 128. Raises
-    where none applies."""
+    where none applies (a field of neither 4 nor 16 limbs, S above 128)."""
     if field.n16 not in (4, 16) or not 1 <= size <= 128:
         raise ValueError(f"ntt_level takes n16 of 4 or 16 and S <= 128, got n16={field.n16}, "
                          f"S={size}")
-    if field.n16 == 16 and size in MMA_RADICES:
-        return "mma"
     if size in BUTTERFLY_RADICES:
         return "butterfly"
     return "limb"
 
 
-def ntt_level(field: Field, x, w, tw=None, w_planes=None, body=None):
+def ntt_level(field: Field, x, w, tw=None, body=None):
     """One radix-S DFT level over axis 1 of x (B, S, C, n16) with the
     (S, S, n16) Montgomery DFT matrix w, then an optional Montgomery
     twiddle: a scalar (n16,) or an (S, C, n16) table wrapping over B.
@@ -910,12 +856,9 @@ def ntt_level(field: Field, x, w, tw=None, w_planes=None, body=None):
     w[1, e] = w[1, 1]^e, so on the card at its radices the result is the
     level for a DFT matrix whatever else w holds (the plain version on the
     CPU multiplies by w as given). CPU: plain version. CUDA: the ntt_level
-    kernel, in the body that `ntt_level_body` names for the field and S.
-    The "mma" body reads W as its (2 n16, S, S) uint8 byte-plane matrix
-    `w_planes` (`dft_byte_planes(w)`, derived here when the caller keeps
-    no table). `body` asks for one body by name, for comparing them on one
-    input: "limb" serves every shape, the other two only their own
-    radices."""
+    kernel, in the body that `ntt_level_body` names for S. `body` asks
+    for one body by name, for comparing them on one input: "limb" serves
+    every shape, "butterfly" only its own radices."""
     _check_limbs(field, x, w)
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, C, n16), got {tuple(x.shape)}")
@@ -937,19 +880,7 @@ def ntt_level(field: Field, x, w, tw=None, w_planes=None, body=None):
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    if body == "mma":
-        if w_planes is None:
-            w_planes = dft_byte_planes(w)
-        if (w_planes.dtype != torch.uint8 or tuple(w_planes.shape) != (2 * field.n16, size, size)
-                or w_planes.device != x.device or not w_planes.is_contiguous()
-                or w_planes.data_ptr() % 16):
-            raise ValueError(f"w_planes must be a contiguous ({2 * field.n16}, {size}, {size}) "
-                             "uint8 tensor on the level's device")
-        code = _kernels().hodor_ntt_level_mma(
-            field.n16, out.data_ptr(), x.data_ptr(), w_planes.data_ptr(), bsz, size, cols,
-            *_level_args(field, size, tw), _stream(),
-        )
-    elif body == "butterfly":
+    if body == "butterfly":
         roots = w[1]
         if roots.data_ptr() % 16:
             raise ValueError("w must lie at a 16-byte aligned address")
@@ -1440,6 +1371,9 @@ def dft_reduce_carry_plain(field: Field, w_s8, w_sum, x_s8, radix: int, tw=None)
     if tw is not None:
         u = mont_mul_plain(field, u, tw)
     return u
+
+
+MMA_RADICES = (32, 64, 128)
 
 
 def dft_reduce_body(field: Field, radix: int) -> str:

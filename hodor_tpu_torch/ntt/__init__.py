@@ -1,10 +1,12 @@
 """Number-theoretic transforms on the device.
 
 All functions take and return Montgomery limb tensors of shape
-(..., N, n16). Every transform of length >= 2 runs through the radix
-levels of ntt/matmul.py (radix 128, or 4 for the fields whose wide sums
-allow no more); its canonical output equals the JAX package's
-radix-2, Pease and matmul forms alike. The LDE is the reference's
+(..., N, n16). Under the "level" form a 16-limb field's transform of 2^8
+to 2^24 points runs as one or two passes of the shared body (the shared
+plan of ntt/matmul.py); every other transform of length >= 2 runs
+through the radix levels of ntt/matmul.py (radix 128, or 4 for the
+fields whose wide sums allow no more). The canonical output equals the
+JAX package's radix-2, Pease and matmul forms alike. The LDE is the reference's
 `lde_using_multiple_cosets` (src/polynomials/mod.rs:418-482): one size-T
 NTT per coset, interleaved into natural order on the blown-up domain;
 above LDE_SEQUENTIAL_MIN limbs the cosets run one at a time, each NTT

@@ -19,10 +19,10 @@ matrix, one Montgomery reduction, and the next level's twiddle. It has
 three forms with the same limbs, chosen by `LimbOps.ntt_impl` (the JAX
 package's choice at its _dft_matmul):
 
-  "level"    one launch of the `ntt_level` kernel on the limbs, which
-             contracts byte planes on the int8 tensor cores where the
-             radix fills their depth (a 16-limb field at S = 32, 64, 128)
-             and works on the limbs themselves elsewhere;
+  "level"    one launch of the `ntt_level` kernel on the limbs, whose
+             body the kernel's wrapper picks from the radix (radix-2
+             butterflies in registers at S = 2, 4, 8, limb arithmetic on
+             the integer pipe elsewhere);
   "two_step" the byte planes of x as int8 (minus 128) against the folded
              byte-plane DFT matrix in one library int8 product, the
              offset corrections, then the `wide_reduce` kernel;
@@ -80,17 +80,6 @@ def dft_matrix(ops: LimbOps, size: int, inverse: bool) -> torch.Tensor:
             ]).astype(np.int32)
             idx = np.outer(np.arange(size), np.arange(size)) % size
             ops.tables[key] = torch.from_numpy(np.ascontiguousarray(pows[idx])).to(ops.device)
-    return ops.tables[key]
-
-
-def dft_matrix_planes(ops: LimbOps, size: int, inverse: bool) -> torch.Tensor:
-    """(2 n16, size, size) uint8: byte q of W[k, j] at [q, k, j], the DFT
-    matrix as the tensor-core body of `ntt_level` reads it (512 KB at
-    n16 = 16, S = 128), built once per LimbOps beside `dft_matrix`."""
-    key = ("dft_planes", size, inverse)
-    if key not in ops.tables:
-        with span("ops.tables"):
-            ops.tables[key] = kernels.dft_byte_planes(dft_matrix(ops, size, inverse))
     return ops.tables[key]
 
 
@@ -216,12 +205,7 @@ def dft_level(ops: LimbOps, x, inverse: bool, tw=None):
         return _level_two_step(ops, x, inverse, tw)
     if ops.ntt_impl == "fused":
         return _level_fused(ops, x, inverse, tw)
-    size = x.shape[1]
-    planes = None
-    if x.device.type == "cuda" and kernels.ntt_level_body(ops.field, size) == "mma":
-        planes = dft_matrix_planes(ops, size, inverse)
-    return kernels.ntt_level(ops.field, x.contiguous(), dft_matrix(ops, size, inverse), tw,
-                             w_planes=planes)
+    return kernels.ntt_level(ops.field, x.contiguous(), dft_matrix(ops, x.shape[1], inverse), tw)
 
 
 def pass_roots(ops: LimbOps, size: int, inverse: bool) -> torch.Tensor:

@@ -13,8 +13,8 @@ For each case of `chip_smoke.py` phase 3 that runs `mont_mul`, `addsub`
 or `fri_fold` (at F_STARK's, F_BLS's and F_P63's widths, 2^20 elements;
 the fold at half 2^23 and 2^24; and F_P63 at its prove's 2^24
 elements), and for a whole FRI round's fold as ROOT's ladder makes it
-(`fri round`: with the challenge drawn apart and the twiddles built by
-`fold_pair` where ROOT's fold takes them), one JSON line: `host_us`, the
+(`fri round`: `fold_pair`, which draws the challenge from the last root
+and reads the ladder's twiddle tables), one JSON line: `host_us`, the
 host clock over `HOST_REPS` calls with no synchronisation, divided by
 the calls (the median of `HOST_BATCHES` such batches, `host_time_us`);
 `device_ms`, the device time of one call, from `DEVICE_REPS` calls
@@ -173,35 +173,17 @@ def _canonical(field, shape, gen, device):
 
 def _fold_case(K, fri, field, ops, lo, hi, gen, dev):
     """A call of ROOT's fold wrapper on lo and hi as round 0 of their
-    ladder: where ROOT's `fri_fold` takes explicit twiddles w (the form
-    before the kernel made its own inputs), w and c/2 are made here,
-    outside the call; else the call draws c from a root and w from the
-    ladder's tables."""
-    import inspect
-
-    half = lo.shape[-2]
-    if "w" in inspect.signature(K.fri_fold).parameters:
-        w = _canonical(field, (half,), gen, dev)
-        c_scaled = ops.mul(_canonical(field, (), gen, dev), ops.two_inv_m)
-        return lambda: K.fri_fold(field, lo, hi, w, c_scaled, ops.two_inv_m)
+    ladder: the call draws c from a root and w from the ladder's tables."""
     root = _root(gen, dev)
-    tw = fri.fold_twiddles(ops, (2 * half - 1).bit_length())
+    tw = fri.fold_twiddles(ops, (2 * lo.shape[-2] - 1).bit_length())
     return lambda: K.fri_fold(field, lo, hi, root, tw, 1)
 
 
 def _round_case(fri, ops, lo, hi, gen, dev):
     """A whole round's fold as ROOT's ladder makes it from the last root:
-    where ROOT's `fold_pair` takes a challenge, the challenge drawn from the
-    root on the device first (digest_to_challenge_mont), as its ladder did;
-    else `fold_pair` alone."""
-    import inspect
-
+    `fold_pair` alone, its twiddle tables built first."""
     root = _root(gen, dev)
     log_n = (2 * lo.shape[-2] - 1).bit_length()
-    if "challenge_limbs" in inspect.signature(fri.fold_pair).parameters:
-        from hodor_tpu_torch.merkle.blake2s import digest_to_challenge_mont
-
-        return lambda: fri.fold_pair(ops, lo, hi, digest_to_challenge_mont(ops, root), 1, log_n)
     fri.fold_twiddles(ops, log_n)
     return lambda: fri.fold_pair(ops, lo, hi, root, 1, log_n)
 

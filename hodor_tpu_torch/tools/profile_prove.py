@@ -19,8 +19,10 @@ prove, then one warm prove without the profiler and one under
     intervals the profiler recorded, and the idle share
     1 - busy / wall against both walls (the profiler adds host time, so
     the share against the profiled wall is an upper bound);
-  - device time and launch count per kernel group (each body of
-    ntt_level its own) and the top kernels;
+  - device time and launch count per kernel group (the butterfly and
+    limb bodies of ntt_level apart; the shared body's passes,
+    `ntt_level_butterfly_kernel_pass`, fall in the butterfly group by
+    their name) and the top kernels;
   - beside them, the span tree of the warm prove without the profiler
     (`Prover.last_timings.report()`: the names the benchmark's
     program_span metrics read, each with its self time).
@@ -40,7 +42,6 @@ LOG_ROWS = 20
 STARTS = ((1, 2), (3, 5), (2, 9), (7, 11), (4, 13), (6, 1), (8, 3), (5, 10))
 
 GROUPS = (
-    ("ntt_level (mma body)", ("ntt_level_mma_kernel",)),
     ("ntt_level (butterfly body)", ("ntt_level_butterfly_kernel",)),
     ("ntt_level (limb body)", ("ntt_level_kernel",)),
     ("mont_mul", ("mont_mul_kernel", "mont_mul_flat_kernel", "mont_mul_grid_kernel")),

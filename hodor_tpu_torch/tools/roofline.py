@@ -47,10 +47,11 @@ def ops_wide_reduce(n16: int) -> int:
 
 
 def ops_ntt_level(size: int, n16: int = 16) -> int:
-    """int8 operations of one level output on the tensor cores: P x P byte
-    products of depth S, a multiply-add two operations, P = 2 n16 byte
-    planes. The yardstick of every body: the card's least time for the
-    function is the tensor cores' or the bytes', whichever body runs."""
+    """int8 operations of one level output as a byte-plane contraction on
+    the tensor cores: P x P byte products of depth S, a multiply-add two
+    operations, P = 2 n16 byte planes. The yardstick of a level whatever
+    body computes it: the card's least time for the function is that
+    contraction's at the int8 rate or the bytes', whichever is longer."""
     return 2 * size * (2 * n16) ** 2
 
 

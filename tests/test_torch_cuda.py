@@ -21,8 +21,7 @@ from hodor_tpu_torch.field import kernels as K
 from hodor_tpu_torch.merkle.blake2s import keyed_midstate
 from hodor_tpu_torch.ntt import intt, ntt
 from hodor_tpu_torch.ntt import matmul as M
-from hodor_tpu_torch.ntt.matmul import (dft_matrix, dft_matrix_planes, encode_s8,
-                                        folded_dft_matrix, max_radix)
+from hodor_tpu_torch.ntt.matmul import dft_matrix, encode_s8, folded_dft_matrix, max_radix
 
 torch.set_num_threads(1)
 
@@ -104,8 +103,9 @@ def test_ntt_level_kernel(dev, name, size, cols, tw):
     _same(got, K.ntt_level_plain(field, x, w, t))
 
 
-# ragged edges of the tensor-core body's 32 x 16 tile: C not a multiple of
-# 16, B * C = 1, a batch boundary inside a tile, each radix it takes
+# the radices a 16-limb level takes the limb body at, with ragged edges of
+# its 8 x 32 tile: C not a multiple of 32, B * C = 1, a batch boundary
+# inside a tile
 BODY_CASES = [(128, 7, 3, "table"), (128, 1, 33, "scalar"), (128, 20, 1, "table"),
               (128, 1, 1, None), (64, 5, 2, None), (64, 16, 2, "scalar"), (32, 3, 5, "table"),
               (32, 1, 1, "scalar"), (32, 40, 1, None)]
@@ -121,21 +121,15 @@ def test_ntt_level_bodies_agree_with_the_plain_version(dev, size, cols, bsz, tw)
     t = {"table": _canonical(field, (size, cols), 18), "scalar": _canonical(field, (), 19),
          None: None}[tw]
     w = dft_matrix(ops, size, False)
-    planes = dft_matrix_planes(ops, size, False)
     want = K.ntt_level_plain(field, x, w, t)
-    assert torch.equal(K.ntt_level_planes_plain(field, x, planes, t), want)
     xd, wd, td = x.to(dev), w.to(dev), None if t is None else t.to(dev)
-    assert K.ntt_level_body(field, size) == "mma"
-    for body, kwargs in (("mma", {"w_planes": planes.to(dev)}), ("mma", {"body": "mma"}),
-                         ("limb", {"body": "limb"})):
-        before = (K.launch_counts["ntt_level"], dict(K.ntt_level_body_counts))
+    assert K.ntt_level_body(field, size) == "limb"
+    for kwargs in ({}, {"body": "limb"}):
+        before = (K.launch_counts["ntt_level"], K.ntt_level_body_counts["limb"])
         got = K.ntt_level(field, xd, wd, td, **kwargs)
         _same(got, want)
         assert K.launch_counts["ntt_level"] == before[0] + 1
-        assert K.ntt_level_body_counts[body] == before[1][body] + 1
-    with pytest.raises(ValueError):
-        K.ntt_level(field, xd[:, :16].contiguous(), dft_matrix(ops, 16, False).to(dev),
-                    body="mma")
+        assert K.ntt_level_body_counts["limb"] == before[1] + 1
 
 
 # the butterfly body's columns: C = 1 (a thread's S elements contiguous),
@@ -731,12 +725,12 @@ def _plain_passes(ops, x, inverse):
 
 
 def _radix_levels(ops, x, inverse, monkeypatch):
-    """The radix-128 plan of the same transform (the "mma" body at S = 128)."""
+    """The radix-128 plan of the same transform (the limb body at S = 128)."""
     with monkeypatch.context() as m:
         m.setattr(M, "SHARED_MIN_POINTS", 1 << 40)
-        before = K.ntt_level_body_counts["mma"]
+        before = K.ntt_level_body_counts["limb"]
         got = intt(ops, x) if inverse else ntt(ops, x)
-        assert K.ntt_level_body_counts["mma"] > before
+        assert K.ntt_level_body_counts["limb"] > before
     return got
 
 
@@ -745,13 +739,13 @@ def _radix_levels(ops, x, inverse, monkeypatch):
 def test_shared_body_at_the_main_path_shapes(dev, log_n, bsz, inverse, monkeypatch):
     """The transforms of a 2^20- and 2^22-row prove (two passes of 2^10 to
     2^11 points) bit-equal to the body's plain version and to the radix
-    plan's mma levels; two launches of the shared body, no other."""
+    plan's limb levels; two launches of the shared body, no other."""
     ops = LimbOps(F_STARK, dev)
     x = _canonical(F_STARK, (bsz, 1 << log_n), 40 + log_n).to(dev)
     before = dict(K.ntt_level_body_counts)
     got = intt(ops, x) if inverse else ntt(ops, x)
     counts = {b: K.ntt_level_body_counts[b] - before[b] for b in K.NTT_LEVEL_BODIES}
-    assert counts == {"mma": 0, "butterfly": 0, "limb": 0, "shared": 2}
+    assert counts == {"butterfly": 0, "limb": 0, "shared": 2}
     _same(got, _plain_passes(ops, x, inverse))
     _same(got, _radix_levels(ops, x, inverse, monkeypatch))
 
@@ -806,7 +800,7 @@ def test_main_path_proof_through_the_shared_body(dev, monkeypatch):
     shared = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1,
                     device=dev).prove(witness)
     counts = {b: K.ntt_level_body_counts[b] - before[b] for b in K.NTT_LEVEL_BODIES}
-    assert counts["mma"] == 0 and counts["shared"] > 0
+    assert counts["butterfly"] == 0 and counts["limb"] == 2 and counts["shared"] > 0
     monkeypatch.setattr(M, "SHARED_MIN_POINTS", 1 << 40)
     levels = Prover(props.clone(), lde_factor=16, fri_final_degree_plus_one=1,
                     device=dev).prove(witness)

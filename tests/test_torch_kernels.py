@@ -1,8 +1,9 @@
 """The plain versions of the port's first four kernels (hodor_tpu_torch.
 field.kernels, what a CPU tensor runs; the other three are held in
 test_torch_fold.py and test_torch_ntt_impls.py) against the JAX package's Pallas kernels
-in interpret mode, as tests/test_pallas.py runs them, and the launch
-geometry the CUDA wrappers hand their kernels.
+in interpret mode, as tests/test_pallas.py runs them (the NTT level also
+against the JAX package's plain level), and the launch geometry the CUDA
+wrappers hand their kernels.
 
 Inputs are made from a seed; equality is exact (canonical outputs)."""
 
@@ -78,35 +79,67 @@ def test_blake2s_plain_matches_pallas_and_hashlib(message_bytes):
         assert got[i].numpy().astype("<i4").tobytes() == digest
 
 
-@pytest.mark.parametrize("with_tw", [False, True])
-@pytest.mark.parametrize("name", ["F_STARK", "F257"])
-def test_ntt_level_plain_matches_pallas_v2(name, with_tw):
-    """The JAX level transforms axis -2 of (128, 128, L) with a twiddle
-    per output; the port's level reads the same data as (1, S, C, L)
-    with S = 128 over j and C = 128 columns, and takes the twiddle as
-    its (S, C, L) table."""
+def _jax_level(jfield, x, size, tw, form):
+    """The JAX level on x (B, C, S, L) or (C, S, L), transforming axis -2,
+    tw None, (L,) or (C, S, L): its Pallas v2 kernel in interpret mode
+    ("v2"), or its plain jnp form with every Pallas form off ("plain")."""
     from hodor_tpu.ntt import matmul as mm
 
-    field, jfield = FIELDS[name]
-    jops = ops_for(jfield)
-    x = _limbs(field, (128, 128), 6)
-    tw = _limbs(field, (128, 128), 7)
-    old = mm._FORCE_V2
+    old = (mm._FORCE_V2, mm._FORCE_FUSED, mm._FORCE_PALLAS, mm._V2_IMPL)
     try:
-        mm._FORCE_V2 = "interpret"
-        mm._V2_IMPL = "bf16"
-        jax.clear_caches()
-        kw = {"tw": jnp.asarray(tw)} if with_tw else {}
-        ref = np.asarray(mm._dft_matmul(jops, jnp.asarray(x), 128, False, **kw))
+        if form == "v2":
+            mm._FORCE_V2, mm._V2_IMPL = "interpret", "bf16"
+            jax.clear_caches()
+        else:
+            mm._FORCE_V2, mm._FORCE_FUSED, mm._FORCE_PALLAS = False, False, False
+        kw = {"tw": jnp.asarray(tw)} if tw is not None else {}
+        return np.asarray(mm._dft_matmul(ops_for(jfield), jnp.asarray(x), size, False, **kw))
     finally:
-        mm._FORCE_V2 = old
-        mm._V2_IMPL = None
-        jax.clear_caches()
+        mm._FORCE_V2, mm._FORCE_FUSED, mm._FORCE_PALLAS, mm._V2_IMPL = old
+        if form == "v2":
+            jax.clear_caches()
+
+
+# (JAX form, field, S, twiddle): the Pallas v2 level at (1, 128, 128) with
+# no twiddle or a table; the plain level at (2, S, 3), S = 32, 64, 128 (the
+# radices a 16-limb level takes the limb body at on the card), with no, a
+# scalar and a table twiddle, on inputs with a byte's extremes among them
+LEVEL_CASES = [
+    pytest.param("v2", name, 128, "table" if with_tw else "none", id=f"{name}-{with_tw}")
+    for name in ("F_STARK", "F257") for with_tw in (False, True)
+] + [
+    pytest.param("plain", "F_STARK", size, tw_case, id=f"plain-{size}-{tw_case}")
+    for size in (32, 64, 128) for tw_case in ("none", "scalar", "table")
+]
+
+
+@pytest.mark.parametrize("form, name, size, tw_case", LEVEL_CASES)
+def test_ntt_level_plain_matches_pallas_v2(form, name, size, tw_case):
+    """The port's level reads (B, S, C, L), transforming axis 1, and takes a
+    table twiddle as (S, C, L) wrapping over B; the JAX level reads the same
+    data as (B, C, S, L) with its table as (C, S, L)."""
+    field, jfield = FIELDS[name]
     ops = LimbOps(field, "cpu")
-    xt = from_numpy_limbs(np.ascontiguousarray(x.transpose(1, 0, 2))[None], "cpu")
-    twt = from_numpy_limbs(np.ascontiguousarray(tw.transpose(1, 0, 2)), "cpu") if with_tw else None
-    got = kernels.ntt_level(field, xt, dft_matrix(ops, 128, False), twt)
-    assert (to_numpy_limbs(got[0]).transpose(1, 0, 2) == ref).all()
+    if form == "v2":
+        bsz, ccols = 1, 128
+        x = _limbs(field, (bsz, size, ccols), 6)
+    else:
+        bsz, ccols = 2, 3
+        x = _limbs(field, (bsz, size, ccols), size)
+        # the extremes of a byte: all-ones limbs below p's top bit, and zero
+        x[0, 0, 0] = 0xFFFF
+        x[0, 0, 0, -1] = (1 << (field.num_bits - 1 - 16 * (field.n16 - 1))) - 1
+        x[1, :, 1] = 0
+    tw = {"none": None, "scalar": _limbs(field, (), 7),
+          "table": _limbs(field, (size, ccols), 7)}[tw_case]
+    xt = from_numpy_limbs(x, "cpu")
+    twt = None if tw is None else from_numpy_limbs(tw, "cpu")
+    got = kernels.ntt_level(field, xt, dft_matrix(ops, size, False), twt)
+    assert got.dtype == torch.int32
+    jx = np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+    jtw = tw if tw is None or tw.ndim == 1 else np.ascontiguousarray(tw.transpose(1, 0, 2))
+    ref = _jax_level(jfield, jx[0] if form == "v2" else jx, size, jtw, form)
+    assert np.array_equal(to_numpy_limbs(got).transpose(0, 2, 1, 3), ref.reshape(jx.shape))
 
 
 @pytest.mark.parametrize("size", [2, 8, 64])

@@ -75,7 +75,7 @@ def test_ntt_of_butterfly_levels_equals_hodor_tpu_pease(monkeypatch, name, inver
     assert max_radix(field) == 4
     sizes = []
 
-    def butterfly_level(fld, x, w, tw=None, w_planes=None, body=None):
+    def butterfly_level(fld, x, w, tw=None, body=None):
         sizes.append(x.shape[1])
         return K.ntt_level_butterfly_plain(fld, x, w, tw)
 

@@ -1,9 +1,9 @@
 """The plain versions behind the kernels redesigned for the H100 (the
-tensor-core body of ntt_level and the mont_pow entry of mont_mul) on CPU
-tensors, against the port's own limb level, the JAX package's level
-(hodor_tpu.ntt.matmul._dft_matmul through its plain jnp reference) and its
-LimbOps.inv_fermat / pow_static on the same limbs. Inputs from numpy seeds;
-tolerance 0 (canonical outputs)."""
+mont_pow entry of mont_mul) on CPU tensors, against the JAX package's
+LimbOps.inv_fermat / pow_static on the same limbs; the bytes of the
+port's DFT matrix against the JAX package's; which body of ntt_level a
+level takes; the elementwise wrappers' refusal of unaligned elements.
+Inputs from numpy seeds; tolerance 0 (canonical outputs)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,70 +23,23 @@ torch.set_num_threads(1)
 FIELDS = {"F_STARK": (F_STARK, JF_STARK), "F257": (F257, JF257)}
 
 
-def _limbs(rng, shape, field=F_STARK):
-    if field.num_bits <= 16:
-        limbs = np.zeros(shape + (field.n16,), dtype=np.uint32)
-        limbs[..., 0] = rng.integers(0, field.p, size=shape)
-        return limbs
-    limbs = rng.integers(0, 1 << 16, size=shape + (field.n16,), dtype=np.uint32)
-    limbs[..., -1] &= (1 << (field.num_bits - 1 - 16 * (field.n16 - 1))) - 1
-    return limbs
-
-
-def _jax_plain_level(jfield, x, size, tw):
-    """The JAX level with every Pallas form off: x (B, C, S, L), tw None,
-    (L,) or (C, S, L)."""
-    old = (jmm._FORCE_V2, jmm._FORCE_FUSED, jmm._FORCE_PALLAS)
-    try:
-        jmm._FORCE_V2, jmm._FORCE_FUSED, jmm._FORCE_PALLAS = False, False, False
-        return np.asarray(jmm._dft_matmul(ops_for(jfield), jnp.asarray(x), size, False,
-                                          tw=None if tw is None else jnp.asarray(tw)))
-    finally:
-        jmm._FORCE_V2, jmm._FORCE_FUSED, jmm._FORCE_PALLAS = old
-
-
-@pytest.mark.parametrize("tw_case", ["none", "scalar", "table"])
-@pytest.mark.parametrize("size", [32, 64, 128])
-def test_level_planes_plain_matches_limb_level_and_jax(size, tw_case):
-    bsz, ccols = 2, 3
-    rng = np.random.default_rng(size)
-    ops = LimbOps(F_STARK, "cpu")
-    x = _limbs(rng, (bsz, size, ccols))
-    # the extremes of a byte: all-ones limbs below p's top bit, and zero
-    x[0, 0, 0] = 0xFFFF
-    x[0, 0, 0, -1] = (1 << (F_STARK.num_bits - 1 - 16 * 15)) - 1
-    x[1, :, 1] = 0
-    tw = {"none": None, "scalar": _limbs(rng, ()), "table": _limbs(rng, (size, ccols))}[tw_case]
-    xt = from_numpy_limbs(x, "cpu")
-    twt = None if tw is None else from_numpy_limbs(tw, "cpu")
-    w = tmm.dft_matrix(ops, size, False)
-    got = K.ntt_level_planes_plain(F_STARK, xt, tmm.dft_matrix_planes(ops, size, False), twt)
-    assert got.dtype == torch.int32
-    assert torch.equal(got, K.ntt_level_plain(F_STARK, xt, w, twt))
-    jtw = tw if tw is None or tw.ndim == 1 else np.ascontiguousarray(tw.transpose(1, 0, 2))
-    ref = _jax_plain_level(JF_STARK, np.ascontiguousarray(x.transpose(0, 2, 1, 3)), size, jtw)
-    assert np.array_equal(to_numpy_limbs(got).transpose(0, 2, 1, 3), ref)
-
-
 @pytest.mark.parametrize("name", sorted(FIELDS))
 @pytest.mark.parametrize("inverse", [False, True])
-def test_dft_matrix_planes_are_the_bytes_of_dft_matrix(name, inverse):
+def test_dft_matrix_bytes_match_jax(name, inverse):
+    """The bytes of the port's DFT matrix are the JAX package's byte form
+    of its own (the matrix the "two_step" and "fused" forms fold)."""
     field, jfield = FIELDS[name]
     ops = LimbOps(field, "cpu")
     size = 32
-    planes = tmm.dft_matrix_planes(ops, size, inverse)
     w = tmm.dft_matrix(ops, size, inverse)
-    assert planes.dtype == torch.uint8 and tuple(planes.shape) == (2 * field.n16, size, size)
-    assert planes.is_contiguous()
-    assert torch.equal(planes[0::2].permute(1, 2, 0).to(torch.int32), w & 0xFF)
-    assert torch.equal(planes[1::2].permute(1, 2, 0).to(torch.int32), w >> 8)
+    got = torch.stack([w & 0xFF, w >> 8], dim=-1).reshape(size, size, 2 * field.n16)
     jbytes = jmm._dft_matrix_bytes(jfield, size, inverse)  # (S, S, P) float bytes
-    assert np.array_equal(planes.permute(1, 2, 0).numpy(), np.asarray(jbytes).astype(np.uint8))
+    assert np.array_equal(got.numpy(), np.asarray(jbytes).astype(np.int32))
 
 
 def test_ntt_level_body_follows_field_and_radix():
     assert [K.ntt_level_body(F_STARK, s) for s in (128, 64, 32, 16, 8, 4, 2, 1)] == \
-        ["mma", "mma", "mma", "limb", "butterfly", "butterfly", "butterfly", "limb"]
+        ["limb", "limb", "limb", "limb", "butterfly", "butterfly", "butterfly", "limb"]
     assert [K.ntt_level_body(F257, s) for s in (128, 32, 16, 8, 4, 2)] == \
         ["limb"] * 3 + ["butterfly"] * 3
     assert [K.ntt_level_body(f, s) for f in (F_BLS, F_P63) for s in (4, 2)] == ["butterfly"] * 4
