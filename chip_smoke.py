@@ -100,13 +100,15 @@ Phases, each reported on its own line:
      verified, a tampered proof rejected; the memory-bounded forms may
      engage (they are printed);
  14. (after phase 12, before phase 13) the memory-bounded forms (trees
-     that keep only their root, leaves hashed in chunks, LDEs coset by
-     coset, DEEP's domain points not kept; profiling.form_counts), with no
+     that keep only their top levels, leaves hashed in chunks, LDEs coset
+     by coset, DEEP's domain points not kept; profiling.form_counts, and
+     profiling.reopen_counts, what the dropped trees' openings hashed
+     again), with no
      earlier prover alive: 14a the main path's instance and witness at
      2^20 rows with every form forced (forced_forms) and the peak memory
      of every stage, its warm proof
      byte-equal to phase 5's and verified, more blake2s launches than
-     phase 5's (the rebuilt trees), its peak beside phase 5's; 14b the
+     phase 5's (the subtrees hashed again), its peak beside phase 5's; 14b the
      quadratic VDF over F_STARK at 2^22 rows, lde 16, FRI to a constant,
      native witness, as phase 5, with the peak allocated and reserved
      memory of every stage, every form engaged, the prover's ops.tables
@@ -979,6 +981,7 @@ def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_fac
     def prove_once():
         """(proof, wall, peak allocated, peak reserved, stage records)."""
         profiling.reset_form_counts()
+        profiling.reset_reopen_counts()
         records = []
         t0 = time.perf_counter()
         if per_stage:
@@ -994,7 +997,8 @@ def phase_at_size(dev, label: str, field, into_arp, native: bool = True, lde_fac
 
     def check_forms(run: str):
         engaged = dict(profiling.form_counts)
-        log(f"{label}: memory-bounded forms in the {run} prove: {json.dumps(engaged)}")
+        log(f"{label}: memory-bounded forms in the {run} prove: {json.dumps(engaged)}; "
+            f"reopened {json.dumps(profiling.reopen_counts)}")
         if not forms and any(engaged.values()):
             raise AssertionError(f"{label}: a memory-bounded form engaged at this size: {engaged}")
         return engaged
@@ -1446,7 +1450,7 @@ def phase_forms_forced(dev, main_proof: bytes, main_counts, main_peaks):
     with every memory-bounded form forced (forced_forms), with per-stage
     peaks: the warm proof byte-equal to phase 5's, verified
     (phase_at_size), every form engaged, more blake2s launches than phase
-    5 (the rebuilt trees), and the peak beside phase 5's. Returns the
+    5 (the subtrees hashed again), and the peak beside phase 5's. Returns the
     launch counts of set-up + cold prove + verify."""
     import torch
 
@@ -1473,7 +1477,7 @@ def phase_forms_forced(dev, main_proof: bytes, main_counts, main_peaks):
         raise AssertionError(f"{label}: forms that did not engage: {idle}")
     if counts["blake2s"] <= main_counts["blake2s"]:
         raise AssertionError(f"{label}: blake2s launched {counts['blake2s']} times, no more than "
-                             f"phase 5's {main_counts['blake2s']}: no tree was rebuilt")
+                             f"phase 5's {main_counts['blake2s']}: no subtree was hashed again")
     log(f"{label}: warm proof equals phase 5's ({len(main_proof)} bytes); blake2s launches "
         f"{counts['blake2s']} against phase 5's {main_counts['blake2s']}; peak device memory "
         f"cold {warm['peaks'][0]:.3f} / warm {warm['peaks'][1]:.3f} GiB against phase 5's "

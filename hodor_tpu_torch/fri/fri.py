@@ -163,7 +163,8 @@ def fri_chain(ops: LimbOps, lde_values, num_steps: int, log_domain: int, first_r
 def open_entry(tree, values, idx):
     """One entry's query rows and full Merkle paths on the device: values
     (Q, L) and siblings (depth, Q, 8), or with lanes (B, Q, L) and
-    (depth, B, Q, 8); a dropped tree hashes `values` again."""
+    (depth, B, Q, 8); a dropped tree hashes the subtrees of `values` under
+    idx again."""
     return take_rows(values, idx), tree.path_digests(idx, values)
 
 
@@ -177,7 +178,7 @@ def gather_chain_queries(chain_data, idx_arrays):
     on the host, in one device-to-host copy.
 
     The entries are let go as they are opened: each slot of chain_data
-    becomes None and each local tree drops its levels, so that where the
+    becomes None and each local tree drops its lower levels, so that where the
     caller holds no other reference an entry's values and tree are freed
     before the next entry is opened (hodor_tpu's per-oracle gathers)."""
     if not chain_data:

@@ -13,10 +13,14 @@ two of at least 2, so no pair straddles two lanes, and the build stops at
 the B lane roots.
 
 A tree of at least TREE_DROP_MIN leaves (a lane's) is dropped: its build
-lets each level go once the next is built, and it keeps only its root
-digest, its size and its lanes (hodor_tpu's tree_drop_min). Its openings
-hash the committed values again, keeping only the siblings they need
-(`rebuilt_path_digests`), so its resident bytes are those of its root.
+lets each level go once the next is built, and it keeps only its top
+levels, from the one of N / 2^k digests up to the root, k = ⌊log2 N / 2⌋
+(hodor_tpu's tree_drop_min keeps the root alone): fewer than
+2^(⌈log2 N / 2⌉ + 1) digests a lane, 1 MiB at 2^27 leaves. An opening
+gathers the 2^k committed rows under each queried index, hashes those
+subtrees (one launch a level for every index and lane) and takes the
+lower siblings from them and the upper ones from the kept levels, so it
+hashes Q 2^k leaves again, not N.
 """
 
 from __future__ import annotations
@@ -28,12 +32,13 @@ import torch
 
 from ..field.field import Field
 from ..field.limbs import fetch_together
-from ..profiling import form_counts
+from ..profiling import form_counts, reopen_counts, span
 from .blake2s import blake2s_keyed, digest_to_bytes, hash_block, hash_leaf_limbs
 
-# Trees over at least this many leaves (a lane's) are dropped. Above every
-# tree of a 2^20-row prove at lde 16 (2^25 leaves), at the f, g, h1 and
-# h2 trees of a 2^22-row one (2^26 and 2^27 leaves): set from the memory
+# Trees over at least this many leaves (a lane's) are dropped, keeping
+# their top levels only (about 512 KiB at 2^26 leaves). Above every tree
+# of a 2^20-row prove at lde 16 (2^25 leaves), at the f, g, h1 and h2
+# trees of a 2^22-row one (2^26 and 2^27 leaves): set from the memory
 # profile of those proves on an H100 80GB HBM3 (tools/memory_profile.py,
 # PERF.md §6).
 TREE_DROP_MIN = 1 << 26
@@ -45,52 +50,53 @@ def next_level(cur):
     return hash_block(cur.reshape(cur.shape[:-2] + (cur.shape[-2] // 2, 16)), 64)
 
 
-def build_levels(leaf_limbs):
-    """leaf_limbs (..., N, n16) -> (leaf_hashes (..., N, 8), levels):
-    levels[0] is the first internal level (..., N/2, 8), levels[-1] the
-    roots (..., 1, 8). One launch per level for all leading dims."""
-    leaf_hashes = hash_leaf_limbs(leaf_limbs)
+def build_levels(leaf_limbs, lost: int = 0):
+    """leaf_limbs (..., N, n16) -> the levels bottom-up: levels[0] the leaf
+    hashes (..., N, 8), levels[-1] the roots (..., 1, 8). One launch per
+    level for all leading dims. The lowest `lost` levels are each let go
+    once the next is built, and left out."""
     levels = []
-    cur = leaf_hashes
-    while cur.shape[-2] > 1:
-        cur = next_level(cur)
-        levels.append(cur)
-    return leaf_hashes, levels
-
-
-def build_root(leaf_limbs):
-    """The roots (..., 1, 8) of leaf_limbs (..., N, n16), each level let go
-    once the next is built."""
     cur = hash_leaf_limbs(leaf_limbs)
-    while cur.shape[-2] > 1:
-        cur = next_level(cur)
-    return cur
+    for j in range(leaf_limbs.shape[-2].bit_length()):
+        if j:
+            cur = next_level(cur)
+        if j >= lost:
+            levels.append(cur)
+    return levels
 
 
-def rebuilt_path_digests(leaf_limbs, idx):
-    """MerkleTree.path_digests(idx) of the tree over leaf_limbs, hashed
-    again: the leaves, then each level in turn, each let go once the next
-    is built, only the siblings of idx kept. leaf_limbs (N, n16) with idx
-    (Q,), or (B, N, n16) with idx (B, Q) -> (depth, [B,] Q, 8)."""
-    cur = hash_leaf_limbs(leaf_limbs)
-    sibs = [take_rows(cur, idx ^ 1)]
-    idx = idx >> 1
-    while cur.shape[-2] > 2:
-        cur = next_level(cur)
-        sibs.append(take_rows(cur, idx ^ 1))
-        idx = idx >> 1
-    return torch.stack(sibs, dim=0)
+def subtree_depth(n: int) -> int:
+    """k = ⌊log2 n / 2⌋: a dropped tree of n leaves lets go of its leaf
+    hashes and the k − 1 internal levels above them, and an opening hashes
+    the 2^k leaves under each queried index."""
+    return (n.bit_length() - 1) // 2
+
+
+def subtree_path_digests(leaf_limbs, idx, k: int):
+    """The k lowest siblings of each path, from the committed leaves:
+    gather the 2^k rows under each index's ancestor at level k, hash those
+    subtrees together and take the siblings from them. leaf_limbs
+    (N, n16) with idx (Q,), or (B, N, n16) with idx (B, Q) -> k tensors
+    of (Q, 8), or (B, Q, 8)."""
+    base = (idx >> k) << k
+    rows = base[..., None] + torch.arange(1 << k, dtype=idx.dtype, device=idx.device)
+    sub = take_rows(leaf_limbs, rows)  # (..., Q, 2^k, n16)
+    reopen_counts["openings"] += 1
+    reopen_counts["leaves_hashed"] += rows.numel()
+    local = idx - base
+    return [torch.take_along_dim(level, ((local >> j) ^ 1)[..., None, None], dim=-2)[..., 0, :]
+            for j, level in enumerate(build_levels(sub)[:-1])]
 
 
 def take_rows(t, idx):
-    """Rows idx of t: t (N, C) with idx (Q,) -> (Q, C), or t (B, N, C)
-    with idx (B, Q) -> (B, Q, C), lane b's rows from lane b (one index
-    op over all lanes; t may be a strided view, nothing is copied but the
-    rows taken)."""
+    """Rows idx of t: t (N, C) with idx (Q, ...) -> (Q, ..., C), or t
+    (B, N, C) with idx (B, Q, ...) -> (B, Q, ..., C), lane b's rows from
+    lane b (one index op over all lanes; t may be a strided view, nothing
+    is copied but the rows taken)."""
     if t.dim() == 2:
         return t[idx]
-    lanes = torch.arange(t.shape[0], dtype=idx.dtype, device=idx.device)[:, None]
-    return t[lanes, idx]
+    lanes = torch.arange(t.shape[0], dtype=idx.dtype, device=idx.device)
+    return t[lanes.view((-1,) + (1,) * (idx.dim() - 1)), idx]
 
 
 @dataclasses.dataclass
@@ -113,17 +119,16 @@ class IopQuery:
 
 class MerkleTree:
     """Device-built Blake2s commitment tree over field-element leaves, one
-    tree or a batch of B trees of equal size (a leading lane axis). A
-    dropped tree holds its root digest alone (leaf_hashes and levels
-    None)."""
+    tree or a batch of B trees of equal size (a leading lane axis). It
+    holds its levels bottom-up, levels[-1] the roots; a dropped tree holds
+    only the top ones (`lost` levels let go below them)."""
 
-    def __init__(self, root, field: Field, size: int, leaf_hashes=None, levels=None):
+    def __init__(self, levels, field: Field, size: int):
         self.field = field
-        self.root = root  # (8,) or (B, 8) int32 digest on the device
         self.size = size
-        self.lanes = int(root.shape[0]) if root.dim() == 2 else None
-        self.leaf_hashes = leaf_hashes  # (N, 8) or (B, N, 8); None once dropped
-        self.levels = levels  # bottom-up internal levels; None once dropped
+        self.levels = levels  # (..., size >> (lost + j), 8) for j = 0, 1, ...
+        self.root = levels[-1][..., 0, :]  # (8,) or (B, 8) int32 digest on the device
+        self.lanes = int(self.root.shape[0]) if self.root.dim() == 2 else None
         self._root_bytes = None  # bytes, or a list of them per lane
 
     @staticmethod
@@ -137,20 +142,31 @@ class MerkleTree:
         n = leaf_limbs.shape[-2]
         if n & (n - 1) or n < 2:
             raise ValueError(f"a tree needs a power-of-two leaf count >= 2, got {n}")
+        lost = 0
         if n >= TREE_DROP_MIN:
             form_counts["trees_dropped"] += 1
-            return MerkleTree(build_root(leaf_limbs)[..., 0, :], field, n)
-        leaf_hashes, levels = build_levels(leaf_limbs)
-        return MerkleTree(levels[-1][..., 0, :], field, n, leaf_hashes, levels)
+            lost = subtree_depth(n)
+        return MerkleTree(build_levels(leaf_limbs, lost), field, n)
+
+    @property
+    def lost(self) -> int:
+        """How many levels, the leaf hashes first, the tree let go."""
+        return self.size.bit_length() - len(self.levels)
 
     @property
     def dropped(self) -> bool:
-        return self.leaf_hashes is None
+        return self.lost > 0
+
+    @property
+    def leaf_hashes(self):
+        """(N, 8) or (B, N, 8) leaf digests; None once dropped."""
+        return None if self.dropped else self.levels[0]
 
     def drop(self) -> None:
-        """Let the leaf hashes and levels go; the root, size and lanes stay,
-        and openings hash the committed values again."""
-        self.leaf_hashes = self.levels = None
+        """Let the levels below the top ones go, as a tree dropped at its
+        build keeps them; openings hash the subtrees under their indices
+        again."""
+        self.levels = self.levels[subtree_depth(self.size) - self.lost:]
 
     def root_digest(self):
         """(8,) int32 root digest on the device; (B, 8) for a batch."""
@@ -174,10 +190,7 @@ class MerkleTree:
 
     def lane(self, b: int) -> "MerkleTree":
         """Lane b of a batch as a tree of its own: views, no copy."""
-        tree = MerkleTree(self.root[b], self.field, self.size)
-        if not self.dropped:
-            tree.leaf_hashes = self.leaf_hashes[b]
-            tree.levels = [level[b] for level in self.levels]
+        tree = MerkleTree([level[b] for level in self.levels], self.field, self.size)
         if self._root_bytes is not None:
             tree._root_bytes = self._root_bytes[b]
         return tree
@@ -193,19 +206,21 @@ class MerkleTree:
         to the root's children (src/iop/blake2s_trivial_iop.rs:281-311).
         A batch takes idx (B, Q), lane b's indices into lane b's tree, and
         gives (depth, B, Q, 8), one index op per level for all lanes.
-        values: the committed (..., N, n16) leaves, which a dropped tree
-        hashes again (`rebuilt_path_digests`); a kept tree reads its
-        levels."""
+        values: the committed (..., N, n16) leaves, from which a dropped
+        tree hashes the subtrees under idx again (`subtree_path_digests`);
+        the siblings above them come from the kept levels."""
         if (idx.dim() == 2) != (self.lanes is not None):
             raise ValueError(f"indices {tuple(idx.shape)} do not fit a tree with lanes "
                              f"{self.lanes}")
-        if self.dropped:
+        k = self.lost
+        sibs, cur = [], idx
+        if k:
             if values is None:
                 raise ValueError("a dropped tree opens from its committed values: "
                                  "path_digests(idx, values)")
-            return rebuilt_path_digests(values, idx)
-        sibs = [take_rows(self.leaf_hashes, idx ^ 1)]
-        cur = idx >> 1
+            with span("merkle.reopen"):
+                sibs = subtree_path_digests(values, idx, k)
+            cur = idx >> k
         for level in self.levels[:-1]:
             sibs.append(take_rows(level, cur ^ 1))
             cur = cur >> 1

@@ -24,14 +24,24 @@ record their spans whichever prove path calls them.
 the last `reset_form_counts()`; each form is picked by size against a
 module constant of its own module:
 
-  trees_dropped         a tree that kept only its root (merkle/tree.py
-                        TREE_DROP_MIN)
+  trees_dropped         a tree that kept only its top levels, fewer than
+                        2^(⌈log2 N / 2⌉ + 1) digests a lane
+                        (merkle/tree.py TREE_DROP_MIN)
   leaves_chunked        leaves hashed in row chunks (merkle/blake2s.py
                         HASH_CHUNK)
   ldes_by_coset         an LDE run one coset at a time (ntt LDE_SEQUENTIAL_MIN)
   deep_tables_not_kept  a DEEP whose domain points were built for the call,
                         chunk by chunk, and not kept (ali/instance.py
                         XS_KEEP_MAX)
+
+`reopen_counts` counts, since the last `reset_reopen_counts()`, what the
+openings of dropped trees hashed again (merkle/tree.py
+subtree_path_digests), outside FORMS:
+
+  openings              a dropped tree opened (a batch's lanes at once
+                        count once)
+  leaves_hashed         leaves hashed again: Q 2^k a lane, the 2^k rows
+                        under each of its Q indices, k = ⌊log2 N / 2⌋
 """
 
 from __future__ import annotations
@@ -53,6 +63,14 @@ form_counts: Dict[str, int] = dict.fromkeys(FORMS, 0)
 def reset_form_counts() -> None:
     for k in FORMS:
         form_counts[k] = 0
+
+
+reopen_counts: Dict[str, int] = {"openings": 0, "leaves_hashed": 0}
+
+
+def reset_reopen_counts() -> None:
+    for k in reopen_counts:
+        reopen_counts[k] = 0
 
 
 @dataclasses.dataclass

@@ -13,7 +13,7 @@ point (the protocol's sequential dependencies, src/prover/mod.rs:82-127):
 
 A prove larger than its plain forms fit takes memory-bounded forms, each
 picked by size against a module constant (profiling.form_counts counts
-them): trees that keep only their root (merkle/tree.py TREE_DROP_MIN),
+them): trees that keep only their top levels (merkle/tree.py TREE_DROP_MIN),
 leaves hashed in chunks (merkle/blake2s.py HASH_CHUNK), LDEs one coset at
 a time (ntt LDE_SEQUENTIAL_MIN) and DEEP's domain points not kept
 (ali/instance.py XS_KEEP_MAX). At every size the query stage opens its

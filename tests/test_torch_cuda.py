@@ -599,6 +599,37 @@ def test_batched_tree_on_the_card(dev):
         _same(paths[:, b], tree.path_digests(idx[b]))
 
 
+@pytest.mark.parametrize("lanes", [None, 2])
+def test_dropped_tree_opens_its_subtrees_on_the_card(dev, lanes, monkeypatch):
+    """A 2^20-leaf tree dropped at its build (TREE_DROP_MIN set to 2^20)
+    keeps its levels from 2^10 digests up; its paths, hashed again from
+    the 2^10 rows under each index, equal the kept tree's, by its lanes and
+    lane by lane, and after the kept tree's drop()."""
+    from hodor_tpu_torch import profiling
+    from hodor_tpu_torch.merkle import tree as tree_module
+
+    field, n = F_STARK, 1 << 20
+    values = _canonical(field, (n,) if lanes is None else (lanes, n), 29).to(dev)
+    kept = tree_module.MerkleTree.create(values, field)
+    monkeypatch.setattr(tree_module, "TREE_DROP_MIN", n)
+    dropped = tree_module.MerkleTree.create(values, field)
+    assert dropped.lost == 10 and dropped.levels[0].shape[-2] == 1 << 10
+    assert dropped.get_roots() == kept.get_roots()
+    idx = torch.tensor([0, n - 1, 2 * 346811, 2 * 346811 + 1], device=dev)
+    if lanes is not None:
+        idx = torch.stack([idx, idx.flip(0)])
+    want = kept.path_digests(idx)
+    profiling.reset_reopen_counts()
+    got = dropped.path_digests(idx, values)
+    _same(got, want)
+    assert profiling.reopen_counts == {"openings": 1, "leaves_hashed": idx.numel() << 10}
+    if lanes is not None:
+        for b in range(lanes):
+            _same(dropped.lane(b).path_digests(idx[b], values[b]), want[:, b])
+    kept.drop()
+    _same(kept.path_digests(idx, values), want)
+
+
 def test_prove_batch_on_the_card(dev):
     """prove_batch of fib_f257 on two distinct lanes, on the card and on
     the CPU: the same proof bytes."""

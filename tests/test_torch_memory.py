@@ -1,6 +1,7 @@
 """The port's memory-bounded forms on CPU tensors (the counterpart of
-tests/test_memory.py): trees that keep only their root and open from the
-committed values (merkle/tree.py TREE_DROP_MIN), leaves hashed in row
+tests/test_memory.py): trees that keep only their top levels and open by
+hashing the committed rows under their indices again (merkle/tree.py
+TREE_DROP_MIN), leaves hashed in row
 chunks (merkle/blake2s.py HASH_CHUNK), LDEs one coset at a time (ntt
 LDE_SEQUENTIAL_MIN), and DEEP's domain points not kept and its rows taken
 in chunks (ali/instance.py XS_KEEP_MAX). Each form is picked by size; a
@@ -129,7 +130,9 @@ def test_dropped_tree_opens_like_the_kept_tree(monkeypatch, lanes):
     monkeypatch.setattr(tree_module, "TREE_DROP_MIN", 256)
     dropped = MerkleTree.create(values, F_STARK)
     assert dropped.dropped and not kept.dropped
-    assert dropped.leaf_hashes is None and dropped.levels is None
+    # 256 leaves: k = 4, the levels of 16 digests up to the root kept
+    assert dropped.leaf_hashes is None and dropped.lost == 4
+    assert [level.shape[-2] for level in dropped.levels] == [16, 8, 4, 2, 1]
     assert torch.equal(dropped.root_digest(), kept.root_digest())
     assert dropped.get_roots() == kept.get_roots() and dropped.size == kept.size == 256
     idx = torch.arange(256)
@@ -143,6 +146,44 @@ def test_dropped_tree_opens_like_the_kept_tree(monkeypatch, lanes):
         assert dropped.lane(1).get_path(5, values[1]) == kept.lane(1).get_path(5)
     kept.drop()
     assert kept.dropped and torch.equal(kept.path_digests(idx, values), want)
+
+
+@pytest.mark.parametrize("lanes", [None, 2])
+@pytest.mark.parametrize("log_n", range(1, 13))
+def test_dropped_tree_hashes_only_the_subtrees_under_its_indices(monkeypatch, log_n, lanes):
+    """At every parity of log2 N, k = ⌊log2 N / 2⌋ = 0 included: a dropped
+    tree keeps fewer than 2^(⌈log2 N / 2⌉ + 1) digests a lane, opens the
+    first and last leaf and a FRI pair (2i, 2i + 1) as the kept tree does,
+    by its lanes and lane by lane, before and after drop(), and hashes
+    Q 2^k leaves a lane again, not N."""
+    n, k = 1 << log_n, log_n // 2
+    shape = (n,) if lanes is None else (lanes, n)
+    values = _leaves(F_STARK, shape, log_n)
+    kept = MerkleTree.create(values, F_STARK)
+    monkeypatch.setattr(tree_module, "TREE_DROP_MIN", n)
+    dropped = MerkleTree.create(values, F_STARK)
+    assert dropped.lost == k and dropped.dropped == (k > 0)
+    assert sum(level.shape[-2] for level in dropped.levels) < 1 << (-(-log_n // 2) + 1)
+    assert dropped.get_roots() == kept.get_roots()
+    pair = 2 * (n // 3 // 2)
+    idx = torch.tensor([0, n - 1, pair, pair + 1])
+    if lanes is not None:
+        idx = torch.stack([idx, idx.flip(0)])
+    want = kept.path_digests(idx)
+    assert want.shape[0] == log_n
+    profiling.reset_reopen_counts()
+    assert torch.equal(dropped.path_digests(idx, values), want)
+    # k = 0 keeps every level: nothing to hash again
+    assert profiling.reopen_counts == {"openings": int(k > 0),
+                                       "leaves_hashed": idx.numel() << k if k else 0}
+    if lanes is not None:
+        for b in range(lanes):
+            lane = dropped.lane(b)
+            assert lane.lost == k and lane.lanes is None
+            assert torch.equal(lane.path_digests(idx[b], values[b]), want[:, b])
+    kept.drop()
+    assert [level.shape for level in kept.levels] == [level.shape for level in dropped.levels]
+    assert torch.equal(kept.path_digests(idx, values), want)
 
 
 @pytest.mark.parametrize("coset", [False, True])
@@ -269,29 +310,44 @@ def test_f_ldes_are_freed_before_the_query_stage_ends(monkeypatch, forced):
 def _rank_forced_proves(mesh, device):
     """One rank of a mesh: fib_f257 and vdf_fstark_t32 with every form's
     constant set as _force sets it (spawned ranks: set on the modules);
-    returns per golden (proof bytes, form counts)."""
+    returns per golden (proof bytes, form counts, reopen counts, the rows
+    of the blocks whose dropped trees were opened)."""
     out = {}
+    reopen = tree_module.subtree_path_digests
+    rows = []
+
+    def counted(leaf_limbs, idx, k):
+        rows.append(leaf_limbs.shape[-2])
+        return reopen(leaf_limbs, idx, k)
+
+    tree_module.subtree_path_digests = counted
     for name in ("fib_f257", "vdf_fstark_t32"):
         into_arp, field = GOLDENS[name]
         witness, props = into_arp()
         for module, attr, k in FORMS["all"]:
             setattr(module, attr, k * props.num_rows if k else 1)
         profiling.reset_form_counts()
+        profiling.reset_reopen_counts()
+        rows.clear()
         proof = Prover(props.clone(), 16, 1, device=device, mesh=mesh).prove(witness)
-        out[name] = (serialize_proof(proof, field), dict(profiling.form_counts))
+        out[name] = (serialize_proof(proof, field), dict(profiling.form_counts),
+                     dict(profiling.reopen_counts), sum(rows))
     return out
 
 
 def test_goldens_under_a_mesh_with_the_forms_forced(tmp_path):
     """At W = 2 the ranks' trees drop and their leaves and DEEP rows go in
-    chunks by size (the sharded openings hash a dropped block's values
-    again). Every rank gives the goldens' bytes."""
+    chunks by size (the sharded openings hash the subtrees of a dropped
+    block under its indices again, fewer leaves than its rows). Every rank
+    gives the goldens' bytes."""
     ranks = run_ranks(_rank_forced_proves, 2, device="cpu", backend="gloo",
                       init_method=f"file://{tmp_path / 'store'}", timeout=300)
     for r, out in enumerate(ranks):
-        for name, (proof, counts) in out.items():
+        for name, (proof, counts, reopened, rows) in out.items():
             assert proof == _golden(name), f"rank {r} {name}"
             assert counts["trees_dropped"], (r, counts)
+            assert reopened["openings"] > 0 and 0 < reopened["leaves_hashed"] < rows, \
+                (r, name, reopened, rows)
         # a rank's blocks of vdf_fstark_t32 are long enough to be chunked
         counts = out["vdf_fstark_t32"][1]
         assert counts["leaves_chunked"] and counts["deep_tables_not_kept"], (r, counts)
